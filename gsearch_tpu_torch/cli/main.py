@@ -1,0 +1,140 @@
+"""gsearch_tpu_torch command-line interface.
+
+The subcommands and flags of gsearch_tpu's CLI for the ported slice:
+tohnsw / add / request / reformat, plus `--device` (default cuda; asking
+for cuda without a card raises, the CPU is asked for with --device cpu).
+As in the reference, add/request take no algorithm flags: everything is
+reloaded from the database's parameters.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def _add_global(p: argparse.ArgumentParser, top: bool = False) -> None:
+    """Global flags, accepted before or after the subcommand (a subparser's
+    own default would overwrite the value given before it, so only the
+    top-level parser carries defaults)."""
+    def default(value):
+        return value if top else argparse.SUPPRESS
+
+    p.add_argument("--pio", type=int, default=default(0), help="files per parallel IO group")
+    p.add_argument("--nbthreads", type=int, default=default(0), help="host parse threads")
+    p.add_argument("--mesh", type=int, default=default(0),
+                   help="device-mesh sharding: not ported, any value but 0 is rejected")
+    p.add_argument("--device", default=default("cuda"),
+                   help="torch device: cuda (default; raises without a card) or cpu")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="gsearch_tpu_torch",
+        description="genome sketch-and-search on one torch device (gsearch capabilities)",
+    )
+    _add_global(ap, top=True)
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    t = sub.add_parser("tohnsw", help="build a database from a directory of FASTA files")
+    _add_global(t)
+    t.add_argument("-d", "--dir", required=True, help="directory of genome FASTA files")
+    t.add_argument("-k", "--kmer", type=int, required=True)
+    t.add_argument("-s", "--sketch", type=int, required=True)
+    t.add_argument("-n", "--nbng", type=int, required=True, help="max neighbors (M)")
+    t.add_argument("--ef", type=int, default=1600)
+    t.add_argument("--scale_modify_f", type=float, default=1.0)
+    t.add_argument("--algo", default="optdens", help="optdens | revoptdens")
+    t.add_argument("--aa", action="store_true", help="amino-acid mode (not ported)")
+    t.add_argument("--block", action="store_true",
+                   help="sketch whole files as one block (genome mode)")
+    t.add_argument("--index", default="auto", choices=["auto", "flat", "hnsw"])
+    t.add_argument("-o", "--out", default=".", help="output database directory")
+
+    a = sub.add_parser("add", help="add genomes to an existing database")
+    _add_global(a)
+    a.add_argument("-b", "--hnsw", required=True, dest="hnsw_dir", help="database directory")
+    a.add_argument("-n", "--new", required=True, dest="new_dir", help="directory of new genomes")
+
+    r = sub.add_parser("request", help="search query genomes against a database")
+    _add_global(r)
+    r.add_argument("-b", "--hnsw", required=True, dest="hnsw_dir")
+    r.add_argument("-n", "--nbanswers", type=int, required=True)
+    r.add_argument("-r", "--query", required=True, dest="req_dir")
+    r.add_argument("-o", "--out", default=".", help="output directory")
+    r.add_argument("--ef", type=int, default=0, help="graph search width (ignored by the flat index)")
+
+    f = sub.add_parser("reformat", help="neighbors file -> TSV with ANI")
+    f.add_argument("kmer", type=int)
+    f.add_argument("model", type=int, help="1=Poisson, 2=Binomial")
+    f.add_argument("input_file")
+    f.add_argument("output_file")
+    return ap
+
+
+def _algo_name(name: str) -> str:
+    return {"prob": "PROB3A"}.get(name.lower(), name.upper())
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+
+    if args.command == "reformat":
+        from .reformat import reformat_file
+
+        n = reformat_file(args.input_file, args.output_file, args.kmer, args.model)
+        print(f"wrote {n} rows to {args.output_file}")
+        return 0
+
+    from gsearch_tpu.core import ComputingParams, HnswParams, ProcessingParams, SeqSketcherParams
+
+    from ..utils import resolve_device
+
+    device = resolve_device(args.device)
+    computing = ComputingParams(
+        nb_files_par=args.pio, nb_threads=args.nbthreads, mesh_devices=args.mesh
+    )
+
+    if args.command == "tohnsw":
+        from ..pipeline import build_database
+
+        params = ProcessingParams(
+            hnsw=HnswParams(
+                capacity=1_500_000,
+                ef=args.ef,
+                max_nb_conn=min(args.nbng, 255),
+                scale_modification=args.scale_modify_f,
+            ),
+            sketch=SeqSketcherParams(
+                kmer_size=args.kmer,
+                sketch_size=args.sketch,
+                algo=_algo_name(args.algo),
+                data_t="AA" if args.aa else "DNA",
+            ),
+            block_flag=args.block,
+        )
+        res = build_database(args.dir, args.out, params, computing,
+                             index_kind=args.index, device=device)
+        print(f"built database with {res['nb_points']} points in {res['elapsed_s']:.1f}s")
+        return 0
+
+    if args.command == "add":
+        from ..pipeline import add_to_database
+
+        res = add_to_database(args.hnsw_dir, args.new_dir, computing, device=device)
+        print(f"database now has {res['nb_points']} points (+{res['added']})")
+        return 0
+
+    if args.command == "request":
+        from ..pipeline import request_database
+
+        res = request_database(args.hnsw_dir, args.req_dir, args.nbanswers, computing,
+                               out_dir=args.out, ef_search=args.ef, device=device)
+        print(f"{res['nb_requests']} requests, {res['nb_matches']} matches "
+              f"-> {res['neighbors_file']}")
+        return 0
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

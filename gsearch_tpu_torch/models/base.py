@@ -1,0 +1,217 @@
+"""Sketcher base: genome code rows -> dart races -> signatures, on one device.
+
+Counterpart of gsearch_tpu/models/base.py.  A genome is cut into rows:
+one row padded to its block bucket (`block_length`) when it fits the
+largest block, otherwise pieces of the largest block that overlap so no
+k-window is lost.  Rows of one block length are raced together in launch
+groups of at most BATCH_ELEMS bases, each genome's pieces are merged with
+`combine_race`, and the merged races are finalized (densified) on the
+device.  `sketch_submit` only enqueues device work; `sketch_finish` copies
+the signatures back.
+
+Signatures are bit-exact with gsearch_tpu because the port cuts genomes
+into exactly the rows the reference races (the packed race's windowed
+pre-reduce depends on the row partition):
+  - a genome of n <= max block bases is one row of block_length(n);
+  - a longer genome is cut at starts 0, step, 2*step, ... with
+    step = max_block - (k - 1), rounded down to a multiple of 4 when the
+    genome arrives as PackedCodes (the reference slices the 2-bit form at
+    byte boundaries);
+  - the rows are max_block long, unless some piece holds more than
+    _MAX_EXC invalid positions: then the reference takes its per-piece
+    fallback and every row is padded to its own block bucket.
+Rows always travel as uint8 codes; the reference's 2-bit exception and
+bit-plane forms existed for its host-device relay.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from gsearch_tpu.core.params import DataType, SeqSketcherParams, SketchAlgo
+from gsearch_tpu.io.codec import PackedCodes
+
+from ..ops.kmer import canonical_dna_windows
+from ..ops.race import RaceResult, bucket_min_packed, combine_race
+
+_MIN_BLOCK_LOG2 = 14
+_MAX_BLOCK_LOG2 = 22
+_BLOCK_STEP_LOG2 = 1
+
+#: bases raced in one launch group (rows x block length).  One budget for
+#: CUDA: a group's temporaries are a dozen or so int64 arrays of this many
+#: elements, a small share of an 80 GB card, and each elementwise launch
+#: still covers 32M elements.
+BATCH_ELEMS = 1 << 25
+
+#: invalid positions a piece may hold in the reference's exception upload
+#: form; beyond it the reference falls back to per-piece rows (see above)
+_MAX_EXC = 1024
+
+
+def block_length(n: int, max_log2: int = _MAX_BLOCK_LOG2) -> int:
+    """Smallest block bucket >= n: powers of two plus 1.5x midpoints
+    (3*2^(k-1)), capped at 2^max_log2."""
+    cap = 1 << max_log2
+    nb = 1 << _MIN_BLOCK_LOG2
+    while nb < n and nb < cap:
+        mid = nb + (nb >> 1)
+        if n <= mid and mid <= cap:
+            return mid
+        nb <<= _BLOCK_STEP_LOG2
+    return min(nb, cap)
+
+
+class SketchTicket:
+    """Handle of an asynchronous sketch_submit: the device signatures
+    [rows, S] that land in `out` at sketch_finish."""
+
+    __slots__ = ("out", "sigs")
+
+    def __init__(self, out: np.ndarray):
+        self.out = out
+        self.sigs: torch.Tensor | None = None
+
+
+def _as_codes(codes) -> np.ndarray:
+    if isinstance(codes, PackedCodes):
+        return codes.to_codes()
+    return np.asarray(codes, dtype=np.uint8)
+
+
+class SketcherBase:
+    """Shared machinery; subclasses define the darts and the finalize."""
+
+    SIG_DTYPE = np.float32
+    # payload-free algorithms race on packed (key | slot) words
+    USE_PACKED_RACE = False
+    # longest contiguous row before a genome is cut into pieces
+    MAX_BLOCK_LOG2 = _MAX_BLOCK_LOG2
+
+    def __init__(self, params: SeqSketcherParams, seed: int = 0x5EED,
+                 device: torch.device = torch.device("cpu")):
+        if params.data_t == DataType.AA:
+            raise NotImplementedError(
+                "AA mode is not ported yet (ROADMAP.md: remaining sketchers and AA mode)")
+        self.params = params
+        self.k = params.kmer_size
+        self.nb_slots = params.sketch_size
+        self.seed = seed
+        self.device = torch.device(device)
+
+    # ---- subclass interface -------------------------------------------------
+
+    def _darts(self, hi, lo, valid):
+        """(hi, lo, valid) windows -> (slots, keys, payload, dart_valid)."""
+        raise NotImplementedError
+
+    def _finalize_race(self, race: RaceResult) -> torch.Tensor:
+        """RaceResult [..., S] -> signatures [..., S]."""
+        raise NotImplementedError
+
+    # ---- device work ----------------------------------------------------------
+
+    def _race_rows(self, codes: torch.Tensor) -> RaceResult:
+        """uint8 code rows [b, nb] on the device -> one race per row."""
+        hi, lo, valid = canonical_dna_windows(codes, self.k)
+        slots, keys, payload, dvalid = self._darts(hi, lo, valid)
+        if not (self.USE_PACKED_RACE and payload is None):
+            raise NotImplementedError("the sort race with payload is not ported yet (ROADMAP.md)")
+        return bucket_min_packed(slots, keys, self.nb_slots, valid=dvalid)
+
+    def _pieces(self, codes) -> List[Tuple[np.ndarray, int]]:
+        """The reference's row partition of one genome: [(codes, row length)]."""
+        max_block = 1 << self.MAX_BLOCK_LOG2
+        n = len(codes)
+        if n <= max_block:
+            return [(_as_codes(codes), block_length(n, self.MAX_BLOCK_LOG2))]
+        step = max_block - (self.k - 1)
+        if isinstance(codes, PackedCodes):
+            step -= step % 4
+            packed = [codes.piece(st, max_block) for st in range(0, n, step)]
+            heavy = any(p.inv.size > _MAX_EXC for p in packed)
+            pieces = [p.to_codes() for p in packed]
+        else:
+            codes = np.asarray(codes, dtype=np.uint8)
+            pieces = [codes[st : st + max_block] for st in range(0, n, step)]
+            heavy = any(int(np.count_nonzero(p >= 4)) > _MAX_EXC for p in pieces)
+        if heavy:
+            return [(p, block_length(len(p), self.MAX_BLOCK_LOG2)) for p in pieces]
+        return [(p, max_block) for p in pieces]
+
+    # ---- public API ----------------------------------------------------------
+
+    def sketch_codes(self, codes) -> np.ndarray:
+        """One genome (uint8 codes or PackedCodes) -> one signature [nb_slots]."""
+        return self.sketch_many([codes])[0]
+
+    def sketch_many(self, codes_list: Sequence) -> np.ndarray:
+        """Signatures for a list of genomes, stacked [B, nb_slots]."""
+        return self.sketch_finish(self.sketch_submit(codes_list))
+
+    def sketch_submit(self, codes_list: Sequence) -> SketchTicket:
+        """Enqueue the device work for a list of genomes; returns at once
+        on CUDA (kernels run asynchronously on the current stream)."""
+        ticket = SketchTicket(np.empty((len(codes_list), self.nb_slots), dtype=self.SIG_DTYPE))
+        if not codes_list:
+            return ticket
+        rows: List[Tuple[np.ndarray, int]] = []
+        first = []  # each genome's pieces are contiguous rows from here
+        for codes in codes_list:
+            first.append(len(rows))
+            rows.extend(self._pieces(codes))
+
+        dev, s = self.device, self.nb_slots
+        found = torch.empty((len(rows), s), dtype=torch.bool, device=dev)
+        key = torch.empty((len(rows), s), dtype=torch.int64, device=dev)
+        payload = torch.empty_like(key)
+        by_len: dict = {}
+        for r, (_, nb) in enumerate(rows):
+            by_len.setdefault(nb, []).append(r)
+        for nb, rids in by_len.items():
+            bcap = max(1, BATCH_ELEMS // nb)
+            for start in range(0, len(rids), bcap):
+                chunk = rids[start : start + bcap]
+                arr = np.full((len(chunk), nb), 255, dtype=np.uint8)
+                for row, r in enumerate(chunk):
+                    piece = rows[r][0]
+                    arr[row, : len(piece)] = piece
+                race = self._race_rows(torch.from_numpy(arr).to(dev))
+                idx = torch.tensor(chunk, dtype=torch.int64, device=dev)
+                found[idx], key[idx], payload[idx] = race
+
+        # merge each genome's pieces in order (the reference's segment reduce)
+        counts = np.diff(np.array(first + [len(rows)]))
+        first_t = torch.tensor(first, dtype=torch.int64, device=dev)
+        acc = RaceResult(found[first_t], key[first_t], payload[first_t])
+        for j in range(1, int(counts.max())):
+            g = torch.from_numpy(np.nonzero(counts > j)[0]).to(dev)
+            r = first_t[g] + j
+            merged = combine_race(RaceResult(acc.found[g], acc.key[g], acc.payload[g]),
+                                  RaceResult(found[r], key[r], payload[r]))
+            acc.found[g], acc.key[g], acc.payload[g] = merged
+        ticket.sigs = self._finalize_race(acc)
+        return ticket
+
+    def sketch_finish(self, ticket: SketchTicket) -> np.ndarray:
+        """Copy the ticket's signatures to the host (once)."""
+        if ticket.sigs is not None:
+            ticket.out[:] = ticket.sigs.cpu().numpy()
+            ticket.sigs = None
+        return ticket.out
+
+
+def make_sketcher(params: SeqSketcherParams, seed: int = 0x5EED,
+                  device: torch.device = torch.device("cpu")) -> SketcherBase:
+    """Algorithm dispatch (the reference's models.make_sketcher)."""
+    from .optdens import OptDensSketcher, RevOptDensSketcher
+
+    table = {SketchAlgo.OPTDENS: OptDensSketcher, SketchAlgo.REVOPTDENS: RevOptDensSketcher}
+    if params.algo not in table:
+        raise NotImplementedError(
+            f"sketching algorithm {params.algo.value} is not ported yet "
+            "(ROADMAP.md: ProbMinHash, then the remaining sketchers)")
+    return table[params.algo](params, seed=seed, device=device)

@@ -1,0 +1,196 @@
+"""Sketch distance: the Hamming fraction over signature vectors.
+
+Counterpart of gsearch_tpu/ops/distance.py.  Slots are compared as 32-bit
+patterns (f32 signatures through an int32 view, equality needs no unsigned
+arithmetic) and distance = 1 - eq / S in f32, the formula of the reference's
+`hamming_frac_xla` and of its Pallas kernel's finish.
+
+Two kernels, each a wrapper beside its plain torch version:
+  - `hamming_frac` (K1): [Q, S] x [N, S] -> [Q, N];
+  - `gather_hamming` (K2): distances of Qc queries to R database rows
+    picked by id, [Qc, R].
+A CPU tensor takes the plain version; a CUDA tensor launches the
+hand-written kernel of csrc/hamming.cu (see the notes there) or raises.
+
+Top-k follows `jax.lax.top_k`'s order: ascending distance, ties by lower
+index, through a stable sort.  The reference's power-of-two Q/N buckets
+existed to reuse remote XLA compiles and are not ported; `bucketed_knn`
+keeps their semantics (rows past `n_valid` are +inf).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import cuda_lib
+
+# bound on the bool compare buffer of the plain versions (elements)
+_PLAIN_ELEMS = 1 << 26
+# K1's tile shape (csrc/hamming.cu) and the blocks per SM its split aims for
+_K1_TQ, _K1_TN, _K1_SK = 32, 64, 64
+_K1_BLOCKS_PER_SM = 4
+
+
+def _distance(eq: torch.Tensor, s: int) -> torch.Tensor:
+    """1 - eq / S in f32.  The divisor is a 0-dim tensor on eq's device:
+    CUDA torch turns division by a Python scalar into multiplication by its
+    reciprocal, which can differ from IEEE division by one ulp."""
+    return 1.0 - eq.to(torch.float32) / torch.tensor(float(s), dtype=torch.float32, device=eq.device)
+
+
+def as_int32_rows(sigs) -> torch.Tensor:
+    """Host signature rows (numpy f32, u32 or i32) as an int32 tensor of
+    their bit patterns, the form both kernels compare."""
+    if sigs.dtype not in (np.float32, np.uint32, np.int32):
+        raise TypeError(f"unsupported signature dtype {sigs.dtype}")
+    return torch.from_numpy(np.ascontiguousarray(sigs).view(np.int32))
+
+
+def _as_i32(x: torch.Tensor, what: str) -> torch.Tensor:
+    if x.dtype == torch.float32:
+        return x.view(torch.int32)
+    if x.dtype == torch.int32:
+        return x
+    raise TypeError(f"{what}: signatures must be float32 or int32, got {x.dtype}")
+
+
+def _check_rows(q: torch.Tensor, db: torch.Tensor) -> int:
+    if q.dim() != 2 or db.dim() != 2:
+        raise ValueError(f"expected 2-D signatures, got {tuple(q.shape)} and {tuple(db.shape)}")
+    if q.dtype != db.dtype:
+        raise TypeError(f"dtype mismatch {q.dtype} vs {db.dtype}")
+    if q.device != db.device:
+        raise ValueError(f"device mismatch {q.device} vs {db.device}")
+    s = q.shape[1]
+    if db.shape[1] != s or s == 0:
+        raise ValueError(f"sketch sizes differ or are empty: {q.shape[1]} vs {db.shape[1]}")
+    return s
+
+
+def _cuda_args(*tensors: torch.Tensor, what: str) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what}: expected CUDA tensors, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+    for dim in (d for t in tensors for d in t.shape):
+        if dim >= 1 << 31:
+            raise ValueError(f"{what}: a dimension exceeds int32")
+
+
+# ---- K1: all-pairs equal-count distance -------------------------------------
+
+def hamming_frac_plain(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """Plain torch K1: [Q, S] x [N, S] -> [Q, N] f32."""
+    s = _check_rows(q, db)
+    qi, di = _as_i32(q, "hamming_frac"), _as_i32(db, "hamming_frac")
+    nq, n = qi.shape[0], di.shape[0]
+    eq = torch.empty((nq, n), dtype=torch.int32, device=q.device)
+    chunk = max(1, _PLAIN_ELEMS // max(1, nq * s))
+    for start in range(0, n, chunk):
+        part = di[start : start + chunk]
+        eq[:, start : start + chunk] = (qi[:, None, :] == part[None, :, :]).sum(-1, dtype=torch.int32)
+    return _distance(eq, s)
+
+
+def hamming_frac(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
+    s = _check_rows(q, db)
+    if q.device.type == "cpu":
+        return hamming_frac_plain(q, db)
+    _cuda_args(q, db, what="hamming_frac")
+    if q.shape[0] > 65535 * 32:
+        raise ValueError("hamming_frac: too many queries for one launch")
+    qi, di = _as_i32(q, "hamming_frac"), _as_i32(db, "hamming_frac")
+    nq, n = q.shape[0], db.shape[0]
+    out = torch.empty((nq, n), dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    # split S over enough blocks to give every SM a few when the 32 x 64
+    # output tiles alone are too few (see csrc/hamming.cu)
+    tiles = -(-n // _K1_TN) * -(-nq // _K1_TQ)
+    want = _K1_BLOCKS_PER_SM * torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = max(1, min(-(-want // tiles), -(-s // _K1_SK)))
+    counts = torch.zeros((nq, n), dtype=torch.int32, device=q.device) if splits > 1 else out
+    lib = cuda_lib.load()
+    rc = lib.gs_hamming_frac(
+        qi.data_ptr(), di.data_ptr(), out.data_ptr(), counts.data_ptr(), nq, n, s, splits,
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(lib, rc, "gs_hamming_frac")
+    cuda_lib.launches["hamming_frac"] += 1
+    return out
+
+
+# ---- K2: distances to candidate rows picked by id ----------------------------
+
+def _check_gather(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor) -> int:
+    s = _check_rows(q, db)
+    if ids.dim() != 2 or ids.shape[0] != q.shape[0]:
+        raise ValueError(f"ids must be [Qc, R] with Qc={q.shape[0]}, got {tuple(ids.shape)}")
+    if ids.device != q.device:
+        raise ValueError(f"device mismatch {ids.device} vs {q.device}")
+    return s
+
+
+def gather_hamming_plain(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Plain torch K2: d(q_i, db[ids[i, j]]) as [Qc, R] f32, +inf for ids
+    outside [0, N)."""
+    s = _check_gather(db, q, ids)
+    di, qi = _as_i32(db, "gather_hamming"), _as_i32(q, "gather_hamming")
+    ids = ids.to(torch.int64)
+    ok = (ids >= 0) & (ids < di.shape[0])
+    safe = torch.where(ok, ids, 0)
+    eq = torch.empty(ids.shape, dtype=torch.int32, device=q.device)
+    chunk = max(1, _PLAIN_ELEMS // max(1, ids.shape[1] * s))
+    for start in range(0, ids.shape[0], chunk):
+        rows = di[safe[start : start + chunk]]  # [c, R, S]
+        eq[start : start + chunk] = (rows == qi[start : start + chunk, None, :]).sum(-1, dtype=torch.int32)
+    return torch.where(ok, _distance(eq, s), torch.inf)
+
+
+def gather_hamming(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU ones.  db [N, S] and q [Qc, S] f32 or int32, ids [Qc, R] int32."""
+    s = _check_gather(db, q, ids)
+    if q.device.type == "cpu":
+        return gather_hamming_plain(db, q, ids)
+    _cuda_args(db, q, ids, what="gather_hamming")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"gather_hamming: ids must be int32, got {ids.dtype}")
+    di, qi = _as_i32(db, "gather_hamming"), _as_i32(q, "gather_hamming")
+    out = torch.empty(ids.shape, dtype=torch.float32, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda_lib.load()
+    rc = lib.gs_gather_hamming(
+        di.data_ptr(), qi.data_ptr(), ids.data_ptr(), out.data_ptr(), di.shape[0], s,
+        ids.shape[0], ids.shape[1], q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_lib.check(lib, rc, "gs_gather_hamming")
+    cuda_lib.launches["gather_hamming"] += 1
+    return out
+
+
+# ---- exact k-NN ----------------------------------------------------------------
+
+def topk_smallest(d: torch.Tensor, k: int):
+    """The k smallest per row in jax.lax.top_k(-d) order (ties: lower index)."""
+    vals, idx = torch.sort(d, dim=1, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def brute_force_knn(q: torch.Tensor, db: torch.Tensor, knbn: int):
+    """Exact top-k by sketch distance: (distances [Q, k], ids [Q, k])."""
+    return topk_smallest(hamming_frac(q, db), min(knbn, db.shape[0]))
+
+
+def bucketed_knn(q: torch.Tensor, db: torch.Tensor, knbn: int, n_valid: int | None = None):
+    """Exact top-k over the first `n_valid` rows of db (rows past it are
+    +inf, never returned); numpy (distances [Q, k], int32 ids [Q, k])."""
+    n = db.shape[0] if n_valid is None else n_valid
+    d = hamming_frac(q, db)
+    if n < db.shape[0]:
+        d[:, n:] = torch.inf
+    dist, ids = topk_smallest(d, min(knbn, n))
+    return dist.cpu().numpy(), ids.to(torch.int32).cpu().numpy()

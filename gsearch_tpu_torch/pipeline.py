@@ -1,0 +1,278 @@
+"""Orchestration pipelines: build (tohnsw), add, and request.
+
+Counterpart of gsearch_tpu/pipeline.py on one torch device: host ingest
+(walk + parse on a producer thread, parallel parse workers) -> device
+sketching -> flat index -> dump, and the request path that reloads a
+database, sketches the queries and writes gsearch.neighbors.txt.  Only the
+flat index is ported: asking for the graph index, or growing a flat
+database past the size where the reference migrates it to one, raises.
+Mesh sharding is not ported and is rejected.
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+import time
+from typing import List
+
+import numpy as np
+import torch
+
+from gsearch_tpu.core import ComputingParams, ProcessingParams, ProcessingState, SeqDict
+from gsearch_tpu.core.seqdict import Id, ItemDict
+from gsearch_tpu.io.fasta import concat_file_codes_packed, file_records_codes
+from gsearch_tpu.io.walk import iter_file_buffers, walk_fasta_dir
+from gsearch_tpu.results.answer import Neighbour, ReqAnswer
+from gsearch_tpu.results.matcher import Matcher
+
+from .index.flat import FlatIndex
+from .index.serialize import dumpall, load_index
+from .models import make_sketcher
+from .utils import StageTimer, get_logger
+
+log = get_logger(__name__)
+
+OUT_THRESHOLD = 0.99  # answer filter (reference: dnarequest.rs:83, matcher.rs:235)
+EF_SEARCH = 0
+NEIGHBORS_FILE = "gsearch.neighbors.txt"
+MATCHES_FILE = "gsearch.matches"
+
+# the reference's flat/graph boundary, kept identical so both packages
+# pick the same index kind for a database (250,000 genomes at s=12000)
+FLAT_AUTO_CAP = 262_144
+FLAT_AUTO_BYTES = 12_000_000_000
+
+
+def flat_auto_limit(sketch_size: int) -> int:
+    return min(FLAT_AUTO_CAP, FLAT_AUTO_BYTES // max(4 * sketch_size, 1))
+
+
+def _check_computing(computing: ComputingParams) -> None:
+    if computing.mesh_devices:
+        raise NotImplementedError(
+            "mesh sharding is not ported yet (ROADMAP.md: torch.distributed)")
+
+
+def _iter_parsed(paths, is_aa: bool, block_flag: bool, computing: ComputingParams,
+                 timer: StageTimer):
+    """Yield (path, [(codes, fasta_id, length), ...]) per file, in path order;
+    nb_threads > 1 parses files concurrently."""
+
+    def parse_one(args):
+        path, data = args
+        with timer.stage("parse"):
+            if data is None:
+                from gsearch_tpu.io.fasta import read_file_bytes
+
+                data = read_file_bytes(path)
+            if block_flag:
+                # DNA block mode parses into PackedCodes (fused native parser)
+                codes, first_id, total = concat_file_codes_packed(
+                    path, is_aa=is_aa, data=data)
+                units = [(codes, first_id, total)] if total > 0 else []
+            else:
+                units = [
+                    (codes, fid, len(codes))
+                    for codes, fid in file_records_codes(path, is_aa=is_aa, data=data)
+                ]
+        return path, units
+
+    nb_threads = computing.nb_threads
+    if nb_threads == 0:
+        nb_threads = max(1, min(8, os.cpu_count() or 1))
+    if nb_threads > 1:
+        from gsearch_tpu.io.walk import bounded_thread_map
+
+        yield from bounded_thread_map(parse_one, ((p, None) for p in paths), nb_threads)
+    else:
+        for _rank, path, data in iter_file_buffers(paths, computing.nb_files_par):
+            yield parse_one((path, data))
+
+
+def _sketch_dir(
+    dirpath: str,
+    params: ProcessingParams,
+    computing: ComputingParams,
+    seqdict: SeqDict,
+    timer: StageTimer,
+    device: torch.device,
+) -> List[np.ndarray]:
+    """Walk + parse + sketch every FASTA under dirpath; extends seqdict and
+    returns one signature per dictionary entry, in rank order.  A producer
+    thread parses into a bounded queue while this thread submits device
+    batches, which run asynchronously on CUDA."""
+    is_aa = params.sketch.data_t.value == "AA"
+    sketcher = make_sketcher(params.sketch, device=device)
+    paths = walk_fasta_dir(dirpath, is_aa=is_aa)
+    if not paths:
+        raise FileNotFoundError(f"no FASTA files under {dirpath}")
+    log.info("found %d files under %s", len(paths), dirpath)
+    tickets: List = []
+    nb_seq = 0
+    t_report = time.time()
+    buf_codes: List = []
+    buf_bases = 0
+
+    def flush():
+        nonlocal buf_codes, buf_bases
+        if not buf_codes:
+            return
+        with timer.stage("sketch"):
+            tickets.append(sketcher.sketch_submit(buf_codes))
+        buf_codes = []
+        buf_bases = 0
+
+    q: "queue.Queue" = queue.Queue(maxsize=max(computing.nb_files_par, 8))
+    _END = object()
+
+    def produce():
+        try:
+            for item in _iter_parsed(paths, is_aa, params.block_flag, computing, timer):
+                q.put(item)
+        except BaseException as e:  # surfaced on the consumer side
+            q.put(e)
+        q.put(_END)
+
+    prod = threading.Thread(target=produce, daemon=True, name="gsearch-producer")
+    prod.start()
+    filerank = 0
+    while True:
+        item = q.get()
+        if item is _END:
+            break
+        if isinstance(item, BaseException):
+            raise item
+        path, units = item
+        filerank += 1
+        for codes, fasta_id, length in units:
+            if length < params.sketch.kmer_size:
+                log.warning("skipping %s (%s): shorter than k", path, fasta_id)
+                continue
+            buf_codes.append(codes)
+            buf_bases += len(codes)
+            seqdict.push(ItemDict(id=Id(path=path, fasta_id=fasta_id), len=length))
+            nb_seq += 1
+            if buf_bases >= (1 << 26) or len(buf_codes) >= 2048:
+                flush()
+        if time.time() - t_report > 30:
+            log.info("processed %d/%d files, %d sequences", filerank, len(paths), nb_seq)
+            t_report = time.time()
+    prod.join()
+    flush()
+    sigs: List[np.ndarray] = []
+    with timer.stage("sketch-drain"):
+        for t in tickets:
+            sigs.extend(sketcher.sketch_finish(t))
+    return sigs
+
+
+def _new_index(params: ProcessingParams, sig_dtype, kind: str, nb_hint: int,
+               device: torch.device) -> FlatIndex:
+    if kind == "auto":
+        kind = "flat" if nb_hint <= flat_auto_limit(params.sketch.sketch_size) else "hnsw"
+    if kind != "flat":
+        raise NotImplementedError(
+            f"index kind {kind!r} is not yet ported (ROADMAP.md: HNSW and the "
+            f"sharded index); the flat index holds up to "
+            f"{flat_auto_limit(params.sketch.sketch_size)} genomes at s={params.sketch.sketch_size}")
+    return FlatIndex(params.sketch.sketch_size, sig_dtype, device)
+
+
+def build_database(genome_dir: str, out_dir: str, params: ProcessingParams,
+                   computing: ComputingParams | None = None, index_kind: str = "auto",
+                   *, device: torch.device) -> dict:
+    """tohnsw: sketch a directory tree, build + dump a database."""
+    computing = computing or ComputingParams()
+    _check_computing(computing)
+    timer = StageTimer()
+    t0 = time.time()
+    os.makedirs(out_dir, exist_ok=True)
+    seqdict = SeqDict()
+    sigs = _sketch_dir(genome_dir, params, computing, seqdict, timer, device)
+    sig_mat = np.stack(sigs)
+    index = _new_index(params, sig_mat.dtype, index_kind, len(sigs), device)
+    with timer.stage("index_insert"):
+        index.insert(sig_mat)
+    state = ProcessingState(
+        nb_seq=len(seqdict),
+        nb_file=len({i.id.path for i in seqdict}),
+        elapsed_t=time.time() - t0,
+    )
+    with timer.stage("dump"):
+        dumpall(out_dir, index, seqdict, params, state)
+    report = timer.report()
+    log.info("build done: %d points in %.1fs %s", index.nb_points, time.time() - t0, report)
+    return {"nb_points": index.nb_points, "elapsed_s": time.time() - t0, "stages": report}
+
+
+def add_to_database(db_dir: str, new_dir: str, computing: ComputingParams | None = None,
+                    *, device: torch.device) -> dict:
+    """add: incremental insertion, parameters reloaded from the database."""
+    computing = computing or ComputingParams()
+    _check_computing(computing)
+    params = ProcessingParams.reload_json(db_dir)
+    seqdict = SeqDict.reload_json(db_dir)
+    state = ProcessingState.reload_json(db_dir)
+    index = load_index(db_dir, device)
+    if index.nb_points != len(seqdict):
+        raise ValueError(f"{db_dir}: index holds {index.nb_points} points, seqdict {len(seqdict)}")
+    timer = StageTimer()
+    t0 = time.time()
+    sigs = _sketch_dir(new_dir, params, computing, seqdict, timer, device)
+    if len(seqdict) > flat_auto_limit(params.sketch.sketch_size):
+        # the reference migrates such a database to its graph index
+        raise NotImplementedError(
+            f"the flat database would grow to {len(seqdict)} points, past the flat "
+            f"limit {flat_auto_limit(params.sketch.sketch_size)}, where gsearch_tpu "
+            "converts it to HNSW, which is not yet ported (ROADMAP.md)")
+    with timer.stage("index_insert"):
+        index.insert(np.stack(sigs))
+    state.nb_seq = len(seqdict)
+    state.nb_file = len({i.id.path for i in seqdict})
+    state.elapsed_t += time.time() - t0
+    dumpall(db_dir, index, seqdict, params, state)
+    log.info("add done: now %d points (+%d)", index.nb_points, len(sigs))
+    return {"nb_points": index.nb_points, "added": len(sigs)}
+
+
+def request_database(db_dir: str, req_dir: str, nb_answers: int,
+                     computing: ComputingParams | None = None, out_dir: str = ".",
+                     ef_search: int = EF_SEARCH, *, device: torch.device) -> dict:
+    """request: batched k-NN of query genomes against a reloaded database."""
+    computing = computing or ComputingParams()
+    _check_computing(computing)
+    params = ProcessingParams.reload_json(db_dir)
+    seqdict = SeqDict.reload_json(db_dir)
+    index = load_index(db_dir, device)
+    timer = StageTimer()
+    req_dict = SeqDict()
+    sigs = _sketch_dir(req_dir, params, computing, req_dict, timer, device)
+    with timer.stage("search"):
+        dists, ids = index.search(np.stack(sigs), knbn=nb_answers, ef_search=ef_search)
+
+    matcher = Matcher(threshold=OUT_THRESHOLD)
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = os.path.join(out_dir, NEIGHBORS_FILE)
+    nb_match = 0
+    with open(out_path, "w") as out:
+        out.write(f" query dir : {req_dir}")
+        for rank, item in enumerate(req_dict):
+            nbrs = [Neighbour(int(i), float(d)) for d, i in zip(dists[rank], ids[rank])]
+            ans = ReqAnswer(rank=rank, req_item=item, neighbours=nbrs)
+            nb_match += ans.dump(seqdict, OUT_THRESHOLD, out)
+            if not params.block_flag:
+                for n in nbrs:
+                    if n.distance < OUT_THRESHOLD:
+                        matcher.insert_sequence_match(item, seqdict[n.d_id], n.distance)
+    if not params.block_flag:
+        with open(os.path.join(out_dir, MATCHES_FILE), "w") as out:
+            matcher.analyze(out)
+    log.info("request done: %d requests, %d matches -> %s", len(req_dict), nb_match, out_path)
+    return {
+        "nb_requests": len(req_dict),
+        "nb_matches": nb_match,
+        "neighbors_file": out_path,
+        "stages": timer.report(),
+    }
