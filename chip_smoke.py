@@ -10,21 +10,43 @@ CUDA card it exits non-zero before printing any result.
      S=12000, f32 and int32 inputs: bitwise equal;
   3. K2 (`gather_hamming`) against its plain version at Qc=1024, R=80,
      N=65536, S=12000 with repeated and out-of-range ids: bitwise equal;
-  4. signatures on the card equal the CPU path's on a small input; then
-     the CLI slice in-process: a seeded corpus of 48 genomes (1.5-6 Mb,
+  4. the CLI slice in-process: a seeded corpus of 48 genomes (1.5-6 Mb,
      8 clusters, some past the 4 Mb block so the piece path runs, some
      with N runs) and 8 queries (1%-mutated members) through
      `tohnsw -k 16 -s 12000 --algo optdens --block`, `request -n 10` and
      `reformat 16 1`: each query's best hit is its source at ANI 99 +- 0.5;
   5. the same request against that database grown to 65,536 genomes with
      seeded uniform decoy signatures: the neighbours file is byte-identical;
+     then, with that database's sketcher, signatures on the card equal the
+     CPU path's on a small input;
   6. timings beside the card's name: sketch Mbases/s, request qps at
      65,536 x 12,000 (1,024 queries, k = 10), K1 and K2 against their
-     plain versions.
-The launch counters are zeroed just before phase 4 and read after phase 5:
-K1 must have run in phase 4, K2 and the int8 matmul in phase 5.
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+     plain versions;
+  K2-packed. K2 parts=2/4/8 against its plain version, bitwise, at the
+     graph index's tier shapes: Qc=1024, R=160, N=262,144, 6,144 / 3,072 /
+     2,048 lanes (12,000 slots as 16-, 8- and 4-bit hashes), with repeated
+     and out-of-range ids; each timed against its plain version;
+  hnsw-build. phase 4's 48 genomes plus seeded clustered decoy signatures
+     (256 families x 16 species x a random tree of 64 members, drawn on the
+     card) up to
+     262,144 x 12,000, built by `HnswIndex.insert` (the bulk path) and
+     dumped as an hnsw database; the build's passes timed;
+  hnsw-request. CLI `request -n 10` of phase 4's queries against it: the
+     neighbours file is byte-identical to phase 4's (decoys lie above the
+     0.99 output threshold);
+  hnsw-add. CLI `add` of the 8 query genomes (the beam-insert path), then
+     `request` again: each query's best hit is itself at 0.00000E0;
+  tiers. 1,024 queries (decoy members with 5% of slots redrawn), k = 10,
+     against the exact oracle (K1 over all 262,144 rows): the coarse route
+     with the full tier and the beam route reach tie-aware recall@10 >= 0.99;
+     the packed, packed8 and packed4 tiers, forced by lowering
+     `_RERANK_DEVICE_BYTES`, overlap the full tier's ids by >= 0.95, 0.9 and
+     0.9; each route timed as a request of 1,024 queries.
+The launch counters are zeroed just before each main-path run and read just
+after it: phases 4-5 (K1 in phase 4, K2 and the int8 matmul in phase 5);
+hnsw-build to hnsw-add (K2 parts=2 in the bulk build, K2 and the int8
+matmul in the request); tiers (K2 parts=4 and 8).  The line before the last
+is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -44,12 +66,18 @@ import torch
 SEED = 20261016
 FULL = {
     "k1": (37, 4095, 12000),           # Q, N, S
+    "k1_batch": (1024, 128, 1024),     # B, C, S' of the bulk build's pair blocks
     "k2": (1024, 80, 65536, 12000),    # Qc, R, N, S
     "lengths": (1_500_000, 6_000_000),  # genome length range of the corpus
     "clusters": 8, "per_cluster": 6,
     "kmer": 16, "sketch": 12000,
     "n_total": 65536, "bench_queries": 1024, "knbn": 10,
+    "k2p": (1024, 160, 262144),        # Qc, R, N of the packed tiers
+    "hnsw_total": 262144, "families": 256, "species": 16,
+    "tier_queries": 1024,
 }
+# the tiers' lane counts at S = 12000 (hnsw._rerank_tier widths / parts)
+K2P_LANES = {2: 12288 // 2, 4: 12288 // 4, 8: 16384 // 8}
 
 
 def card_line() -> str:
@@ -122,8 +150,18 @@ def phase_k1(dev, cfg, gen) -> dict:
             small = (qs[:8].contiguous(), db[:48].contiguous())
             res["ms_8x48"] = event_ms(lambda: hamming_frac(*small), 50)
             res["plain_ms_8x48"] = event_ms(lambda: hamming_frac_plain(*small), 50)
+    # batched, at the bulk build's candidate pair blocks [B, C, S'] x [B, C, S']
+    b, c, sp = cfg["k1_batch"]
+    rows = torch.randint(0, 3, (b, c, sp), generator=gen, device=dev, dtype=torch.int32)
+    got, want = hamming_frac(rows, rows), hamming_frac_plain(rows, rows)
+    if not same_bits(got, want):
+        raise AssertionError(f"batched K1 at {cfg['k1_batch']} differs from its plain version")
+    res["batched"] = max_abs_err(got, want)
+    if dev.type == "cuda":
+        res["ms_batched"] = event_ms(lambda: hamming_frac(rows, rows), 10)
+        res["plain_ms_batched"] = event_ms(lambda: hamming_frac_plain(rows, rows), 2)
     print(f"phase 2 K1 S={s} at Q x N = {nq} x {n}, 8 x 48 and 512 x {n}: f32 and int32 "
-          "bitwise equal to the plain version")
+          f"bitwise equal to the plain version; batched {cfg['k1_batch']} too")
     return res
 
 
@@ -148,6 +186,46 @@ def phase_k2(dev, cfg, gen) -> dict:
         res["ms"] = event_ms(lambda: gather_hamming(db, q, ids), 10)
         res["plain_ms"] = event_ms(lambda: gather_hamming_plain(db, q, ids), 2)
     print(f"phase 3 K2 Qc={qc} R={r} N={n} S={s}: bitwise equal to the plain version")
+    return res
+
+
+def phase_k2_packed(dev, cfg, gen) -> dict:
+    """K2 parts=2/4/8 at the tier shapes.  Lanes of random bits; each query
+    is a database row with a fraction of its lanes XORed with random bits,
+    so equal-field counts spread over the whole range."""
+    from gsearch_tpu_torch.ops.distance import gather_hamming, gather_hamming_plain
+
+    qc, r, n = cfg["k2p"]
+    res = {}
+    for parts, lanes in K2P_LANES.items():
+        s_true = min(cfg["sketch"], lanes * parts)
+        db = torch.randint(-2**31, 2**31 - 1, (n, lanes), generator=gen, device=dev, dtype=torch.int32)
+        src = torch.randint(0, n, (qc,), generator=gen, device=dev)
+        noise = torch.randint(-2**31, 2**31 - 1, (qc, lanes), generator=gen, device=dev, dtype=torch.int32)
+        frac = torch.rand((qc, 1), generator=gen, device=dev)
+        hit = torch.rand((qc, lanes), generator=gen, device=dev) < frac
+        q = torch.where(hit, db[src] ^ noise, db[src]).contiguous()
+        ids = torch.randint(0, n, (qc, r), generator=gen, device=dev, dtype=torch.int32)
+        ids[:, 1] = src.to(torch.int32)
+        ids[:, r // 2:] = ids[:, : r - r // 2]
+        ids[0, 0], ids[1, 0], ids[2, 0] = -1, n, 2**31 - 1
+        got = gather_hamming(db, q, ids, parts=parts, s_true=s_true)
+        want = gather_hamming_plain(db, q, ids, parts=parts, s_true=s_true)
+        if not same_bits(got, want):
+            raise AssertionError(f"K2 parts={parts} differs from its plain version: "
+                                 f"max abs err {max_abs_err(got, want)}")
+        if not bool(torch.isinf(got[:3, 0]).all()) or not bool((got[:, 1] < 1).all()):
+            raise AssertionError(f"K2 parts={parts}: out-of-range ids must give +inf, sources < 1")
+        ent = {"err": max_abs_err(got, want), "lanes": lanes}
+        if dev.type == "cuda":
+            ent["ms"] = event_ms(lambda: gather_hamming(db, q, ids, parts=parts, s_true=s_true), 10)
+            ent["plain_ms"] = event_ms(
+                lambda: gather_hamming_plain(db, q, ids, parts=parts, s_true=s_true), 2)
+        res[parts] = ent
+        del db, q, ids, got, want
+        torch.cuda.empty_cache()
+    print(f"phase K2-packed parts=2/4/8 Qc={qc} R={r} N={n} lanes "
+          f"{'/'.join(str(v) for v in K2P_LANES.values())}: bitwise equal to the plain version")
     return res
 
 
@@ -196,27 +274,25 @@ def write_corpus(root: str, cfg) -> dict:
             "bases": int(lengths.sum()) * cfg["per_cluster"]}
 
 
-def check_sketch_against_cpu(dev, cfg) -> None:
+def check_sketch_against_cpu(dev, cfg, db) -> None:
     """The card's signatures equal the CPU path's (which the tier-1 tests
-    hold bit-exact to gsearch_tpu) on a small input crossing the piece path."""
-    from gsearch_tpu.core.params import SeqSketcherParams
-    from gsearch_tpu_torch.models import make_sketcher
+    hold bit-exact to gsearch_tpu) on a small input crossing the piece path,
+    with the sketcher of phase 4's database."""
+    from gsearch_tpu_torch.pipeline import database_sketcher
 
     rng = np.random.default_rng(SEED)
     genomes = [rng.integers(0, 4, n, dtype=np.uint8) for n in (10, 12_000, 70_001)]
     genomes[2][1000:2500] = 255  # an N run heavy enough for per-piece buckets
-    params = SeqSketcherParams(kmer_size=cfg["kmer"], sketch_size=cfg["sketch"],
-                               algo="OPTDENS", data_t="DNA")
     sigs = []
     for d in (dev, torch.device("cpu")):
-        sk = make_sketcher(params, device=d)
+        sk = database_sketcher(db, device=d)
         sk.MAX_BLOCK_LOG2 = 14
         sigs.append(sk.sketch_many(genomes))
     if sigs[0].shape != (3, cfg["sketch"]) or not np.isfinite(sigs[0]).all():
         raise AssertionError("card signatures have the wrong shape or non-finite values")
     if not np.array_equal(sigs[0].view(np.uint32), sigs[1].view(np.uint32)):
         raise AssertionError("signatures on the card differ from the CPU path")
-    print("phase 4 signatures on the card bitwise equal to the CPU path (3 genomes, piece path)")
+    print("phase 5 signatures on the card bitwise equal to the CPU path (3 genomes, piece path)")
 
 
 def phase_cli(dev, cfg, root) -> dict:
@@ -252,29 +328,22 @@ def phase_cli(dev, cfg, root) -> dict:
             raise AssertionError(f"{query}: best hit {hit} ANI {ani}, expected {src} at 99 +- 0.5")
     print(f"phase 4 CLI: {len(best)} queries, every best hit is its source, "
           f"ANI {min(a for _, a in best.values()):.3f}..{max(a for _, a in best.values()):.3f}")
-    return {"db": db, "neighbours": neighbours, "q_dir": corpus["q_dir"],
+    return {"db": db, "neighbours": neighbours, "q_dir": corpus["q_dir"], "source": corpus["source"],
             "db_dir": corpus["db_dir"], "bases": corpus["bases"], "write_s": t_write,
             "build_s": t_build, "request_s": t_request}
 
 
 def phase_grown(dev, cfg, root, p4) -> dict:
-    from gsearch_tpu.core import ProcessingParams, ProcessingState, SeqDict
-    from gsearch_tpu.core.seqdict import Id, ItemDict
     from gsearch_tpu_torch.cli.main import main
-    from gsearch_tpu_torch.index.serialize import dumpall, load_index
+    from gsearch_tpu_torch.index.serialize import load_index
+    from gsearch_tpu_torch.pipeline import dump_with_placeholders
 
     index = load_index(p4["db"], dev)
-    seqdict = SeqDict.reload_json(p4["db"])
-    params = ProcessingParams.reload_json(p4["db"])
-    state = ProcessingState.reload_json(p4["db"])
     n_decoy = cfg["n_total"] - index.nb_points
     gen = torch.Generator().manual_seed(SEED)
     index.insert(torch.rand((n_decoy, index.sketch_size), generator=gen).numpy())
-    for i in range(n_decoy):
-        seqdict.push(ItemDict(id=Id(path=f"decoys/d{i}.fna", fasta_id=f"d{i}"), len=0))
-    state.nb_seq = len(seqdict)
     db = os.path.join(root, "db65k")
-    dumpall(db, index, seqdict, params, state)
+    dump_with_placeholders(p4["db"], db, index)
     out = os.path.join(root, "req65k")
     t0 = time.perf_counter()
     rc = main(["request", "-b", db, "-n", str(cfg["knbn"]), "-r", p4["q_dir"], "-o", out,
@@ -293,15 +362,11 @@ def phase_grown(dev, cfg, root, p4) -> dict:
 
 def phase_timings(dev, cfg, p4, p5) -> dict:
     """Sketch throughput on the parsed corpus and request qps at full N."""
-    from gsearch_tpu.core import ProcessingParams
-    from gsearch_tpu.io.fasta import concat_file_codes_packed
-    from gsearch_tpu.io.walk import walk_fasta_dir
     from gsearch_tpu_torch.index.serialize import load_index
-    from gsearch_tpu_torch.models import make_sketcher
+    from gsearch_tpu_torch.pipeline import database_sketcher, read_genomes
 
-    params = ProcessingParams.reload_json(p4["db"])
-    genomes = [concat_file_codes_packed(p)[0] for p in walk_fasta_dir(p4["db_dir"])]
-    sketcher = make_sketcher(params.sketch, device=dev)
+    genomes = read_genomes(p4["db_dir"])
+    sketcher = database_sketcher(p4["db"], device=dev)
     sketcher.sketch_many(genomes[:2])
     times = []
     for _ in range(2):
@@ -329,28 +394,266 @@ def phase_timings(dev, cfg, p4, p5) -> dict:
             "request_s": statistics.median(qtimes), "qps": nq / statistics.median(qtimes)}
 
 
+def make_decoys(dev, cfg, out: np.ndarray, gen) -> None:
+    """Fill out [n, S] with clustered decoy signatures drawn on the card, in
+    the shape of a phylogeny: family roots; species roots with half their
+    slots redrawn from their family's; within a species a random tree of
+    members, each a copy of an earlier member (the first: of the species
+    root) with 3% of its slots redrawn.  Consecutive ids share a species.
+    Tree neighbours lie at ~0.03-0.1, species-mates within ~0.3, family-mates
+    near 0.75 and everything else at ~1.0, so a graph search has a gradient
+    to follow, as in a real collection of genomes."""
+    n, s = out.shape
+    n_species = cfg["families"] * cfg["species"]
+    per = -(-n // n_species)
+    fam_root = torch.rand((cfg["families"], s), generator=gen, device=dev)
+    step = 256  # species at a time
+    for sp0 in range(0, n_species, step):
+        sp = torch.arange(sp0, min(sp0 + step, n_species), device=dev)
+        fresh = torch.rand((len(sp), s), generator=gen, device=dev)
+        root = torch.where(torch.rand((len(sp), s), generator=gen, device=dev) < 0.5, fresh,
+                           fam_root[sp // cfg["species"]])
+        members = torch.empty((len(sp), per, s), device=dev)
+        for i in range(per):
+            parent = root if i == 0 else members[
+                torch.arange(len(sp), device=dev),
+                torch.randint(0, i, (len(sp),), generator=gen, device=dev)]
+            redraw = torch.rand((len(sp), s), generator=gen, device=dev) < 0.03
+            members[:, i] = torch.where(redraw, torch.rand((len(sp), s), generator=gen, device=dev),
+                                        parent)
+        start = sp0 * per
+        m = min(len(sp) * per, n - start)
+        if m <= 0:
+            break
+        out[start : start + m] = members.reshape(-1, s)[:m].cpu().numpy()
+
+
+def phase_hnsw_build(dev, cfg, root, p4) -> dict:
+    from gsearch_tpu_torch.index.serialize import load_index
+    from gsearch_tpu_torch.pipeline import dump_with_placeholders, empty_index_like
+
+    flat = load_index(p4["db"], dev)
+    n_real, s = flat.nb_points, flat.sketch_size
+    sigs = np.empty((cfg["hnsw_total"], s), np.float32)
+    sigs[:n_real] = flat.get_sigs()
+    t0 = time.perf_counter()
+    make_decoys(dev, cfg, sigs[n_real:], torch.Generator(device=dev).manual_seed(SEED + 2))
+    t_gen = time.perf_counter() - t0
+    index = empty_index_like(p4["db"], "hnsw", device=dev)
+    t0 = time.perf_counter()
+    index.insert(sigs)  # the bulk build ends in a host sync
+    t_build = time.perf_counter() - t0
+    if "build_s" not in index.stats or index.nb_points != cfg["hnsw_total"]:
+        raise AssertionError("the graph build did not take the bulk path")
+    db = os.path.join(root, "db_hnsw")
+    t0 = time.perf_counter()
+    dump_with_placeholders(p4["db"], db, index)
+    t_dump = time.perf_counter() - t0
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in index.stats["build_s"].items())
+    print(f"phase hnsw-build {cfg['hnsw_total']} x {s} (max_nb_conn {index.max_nb_conn}): decoys "
+          f"{t_gen:.1f} s, bulk build {t_build:.1f} s ({stages}), dump {t_dump:.1f} s; "
+          f"{len(index._pinned)} pinned, {len(index._entry_ids)} entries")
+    return {"index": index, "db": db, "gen_s": t_gen, "build_s": t_build, "dump_s": t_dump,
+            "stages": dict(index.stats["build_s"])}
+
+
+def _cli_request(dev, cfg, db, q_dir, out) -> float:
+    from gsearch_tpu_torch.cli.main import main
+
+    t0 = time.perf_counter()
+    rc = main(["request", "-b", db, "-n", str(cfg["knbn"]), "-r", q_dir, "-o", out,
+               "--device", dev.type])
+    if rc != 0:
+        raise AssertionError(f"request against {db} failed")
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0
+
+
+def phase_hnsw_request(dev, cfg, root, p4, pb) -> dict:
+    out = os.path.join(root, "req_hnsw")
+    t = _cli_request(dev, cfg, pb["db"], p4["q_dir"], out)
+    with open(p4["neighbours"]) as a, open(os.path.join(out, "gsearch.neighbors.txt")) as b:
+        want, got = a.read(), b.read()
+    if got != want:
+        diff = "".join(list(difflib.unified_diff(
+            want.splitlines(True), got.splitlines(True), "48 genomes", "graph"))[:60])
+        raise AssertionError(f"neighbours file of the graph database differs from phase 4's:\n{diff}")
+    print(f"phase hnsw-request at {cfg['hnsw_total']} genomes: neighbours file byte-identical "
+          f"({t:.1f} s CLI wall)")
+    return {"request_s": t}
+
+
+def phase_hnsw_add(dev, cfg, root, p4, pb) -> dict:
+    from gsearch_tpu_torch.cli.main import main
+
+    t0 = time.perf_counter()
+    if main(["add", "-b", pb["db"], "-n", p4["q_dir"], "--device", dev.type]) != 0:
+        raise AssertionError("add failed")
+    t_add = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out = os.path.join(root, "req_hnsw_add")
+    t_req = _cli_request(dev, cfg, pb["db"], p4["q_dir"], out)
+    best = {}
+    with open(os.path.join(out, "gsearch.neighbors.txt")) as f:
+        for line in f:
+            if line.startswith("query_id:"):
+                field = line.rstrip("\n").split("\t")
+                best.setdefault(field[1], (field[3], field[5]))
+    if len(best) != len(p4["source"]):
+        raise AssertionError(f"after add: {len(best)} queries answered, expected {len(p4['source'])}")
+    for query, (dist, hit) in best.items():
+        if hit != query or dist != "0.00000E0":
+            raise AssertionError(f"after add: best hit of {query} is {hit} at {dist}")
+    print(f"phase hnsw-add: 8 genomes added by beam insert ({t_add:.1f} s CLI wall); each query's "
+          f"best hit is itself at 0.00000E0 ({t_req:.1f} s request)")
+    return {"add_s": t_add, "request_s": t_req}
+
+
+def _tie_aware(got_d: np.ndarray, true_d: np.ndarray) -> float:
+    """Recall that counts a miss only where a returned distance is strictly
+    worse than the oracle's (tests/test_index.py's measure)."""
+    worse = np.sort(got_d, 1) > np.sort(true_d, 1) + 1e-6
+    return float(1.0 - worse.mean())
+
+
+def phase_tiers(dev, cfg, pb, counts: dict) -> dict:
+    """The graph index's routes and tiers against the exact oracle; the
+    launches of the routes (not of the oracle) go into counts."""
+    import gsearch_tpu_torch.index.hnsw as hnsw_mod
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops.distance import bucketed_knn
+
+    index = pb["index"]
+    n, k, nq = index.nb_points, cfg["knbn"], cfg["tier_queries"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    src = torch.randint(48, n, (nq,), generator=gen, device=dev).cpu().numpy()
+    rows = torch.from_numpy(index.get_sigs()[src]).to(dev)
+    q = torch.where(torch.rand(rows.shape, generator=gen, device=dev) < 0.05,
+                    torch.rand(rows.shape, generator=gen, device=dev), rows)
+    qn = q.cpu().numpy()
+    t0 = time.perf_counter()
+    true_d, _ = bucketed_knn(q.view(torch.int32), index._device_full_sigs(), k)
+    t_oracle = time.perf_counter() - t0
+
+    def request(route: str):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            d, ids = index.search(qn, k)
+            times.append(time.perf_counter() - t0)
+        got = index.stats["search"]
+        if got["route"] != route:
+            raise AssertionError(f"expected the {route} route, got {got}")
+        return d, ids, times, dict(got)
+
+    res = {"oracle_s": t_oracle}
+    cuda_lib.reset_launches()
+    d, full_ids, times, st = request("coarse")
+    recall = _tie_aware(d, true_d)
+    if st["tier"] != "full" or recall < 0.99:
+        raise AssertionError(f"coarse route + full tier: recall@10 {recall} ({st})")
+    res["coarse"] = {"recall": recall, "cold_s": times[0], "s": statistics.median(times[1:])}
+
+    # per-row budgets (x next_pow2(n) + 1) in the middle of each packed
+    # tier's range under the reference's rule (hnsw._rerank_tier): at
+    # S = 12000 the full tier needs 49,152 bytes a row, packed 16-bit 24,576
+    # of 0.7 of the budget, packed8 12,288, packed4 8,192
+    nbp1 = (1 << (n - 1).bit_length()) + 1
+    s = index.sketch_size
+    full_row = 4 * -(-s // 1024) * 1024
+    p16, p8, p4 = (b / 0.7 for b in (4 * -(-s // 2048) * 1024, -(-s // 4096) * 4096,
+                                     -(-s // 8192) * 4096))
+    saved = hnsw_mod._RERANK_DEVICE_BYTES
+    index._device_full = None
+    torch.cuda.empty_cache()
+    for kind, lo, hi, need in (("packed", p16, full_row, 0.95), ("packed8", p8, p16, 0.9),
+                               ("packed4", p4, p8, 0.9)):
+        per_row = int((lo + hi) / 2)
+        hnsw_mod._RERANK_DEVICE_BYTES = per_row * nbp1
+        if index._rerank_tier()[0] != kind:
+            raise AssertionError(f"budget {per_row} x {nbp1} chose {index._rerank_tier()}, not {kind}")
+        d, ids, times, st = request("coarse")
+        overlap = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ids, full_ids)]))
+        if st["tier"] != kind or overlap < need:
+            raise AssertionError(f"{kind} tier: id overlap with the full tier {overlap} < {need}")
+        res[kind] = {"overlap": overlap, "recall": _tie_aware(d, true_d), "cold_s": times[0],
+                     "s": statistics.median(times[1:])}
+    hnsw_mod._RERANK_DEVICE_BYTES = saved
+    index._device_packed = None
+    torch.cuda.empty_cache()
+
+    index.COARSE_MIN = 1 << 62  # force the beam route on this index
+    d, ids, times, st = request("beam")
+    del index.COARSE_MIN
+    recall = _tie_aware(d, true_d)
+    if recall < 0.99:
+        raise AssertionError(f"beam route: recall@10 {recall} ({st})")
+    res["beam"] = {"recall": recall, "cold_s": times[0], "s": statistics.median(times[1:]),
+                   "hops": st["hops"]}
+    counts.update(cuda_lib.launches)
+    for name in ("gather_hamming", "gather_hamming_p2", "gather_hamming_p4", "gather_hamming_p8",
+                 "int_mm", "hamming_frac"):
+        if counts[name] == 0:
+            raise AssertionError(f"the tier phase never launched {name}: {counts}")
+    print(f"phase tiers {nq} queries x {n} x {index.sketch_size}, k={k}: coarse+full recall@10 "
+          f"{res['coarse']['recall']:.4f}; id overlap with full: packed {res['packed']['overlap']:.4f}, "
+          f"packed8 {res['packed8']['overlap']:.4f}, packed4 {res['packed4']['overlap']:.4f}; "
+          f"beam recall@10 {res['beam']['recall']:.4f} in {st['hops']} hops")
+    return res
+
+
 def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     from gsearch_tpu_torch.ops import cuda_lib
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    k1 = phase_k1(dev, cfg, gen)
-    k2 = phase_k2(dev, cfg, gen)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    clock = {}
 
-    check_sketch_against_cpu(dev, cfg)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        clock[name] = time.perf_counter() - t0
+        print(f"  [{name}: {clock[name]:.1f} s]")
+        return out
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k1 = timed("phase 2", phase_k1, dev, cfg, gen)
+    k2 = timed("phase 3", phase_k2, dev, cfg, gen)
+    k2p = timed("phase K2-packed", phase_k2_packed, dev, cfg, gen)
+    torch.cuda.empty_cache()
+
     cuda_lib.reset_launches()
-    p4 = phase_cli(dev, cfg, root)
+    p4 = timed("phase 4", phase_cli, dev, cfg, root)
     k1_phase4 = cuda_lib.launches["hamming_frac"]
-    p5 = phase_grown(dev, cfg, root, p4)
-    counts = dict(cuda_lib.launches)
+    p5 = timed("phase 5", phase_grown, dev, cfg, root, p4)
+    flat_counts = dict(cuda_lib.launches)
     if k1_phase4 == 0:
         raise AssertionError("phase 4 never launched K1")
-    if counts["gather_hamming"] == 0 or counts["int_mm"] == 0:
-        raise AssertionError(f"phase 5 did not go through K2 and the int8 matmul: {counts}")
-    print(f"main-path launches: {counts}")
+    if flat_counts["gather_hamming"] == 0 or flat_counts["int_mm"] == 0:
+        raise AssertionError(f"phase 5 did not go through K2 and the int8 matmul: {flat_counts}")
+    print(f"main-path launches, flat index (phases 4-5): {flat_counts}")
+    timed("phase 5 sketch check", check_sketch_against_cpu, dev, cfg, p4["db"])
 
-    t = phase_timings(dev, cfg, p4, p5)
+    cuda_lib.reset_launches()
+    pb = timed("phase hnsw-build", phase_hnsw_build, dev, cfg, root, p4)
+    build_counts = dict(cuda_lib.launches)
+    pr = timed("phase hnsw-request", phase_hnsw_request, dev, cfg, root, p4, pb)
+    request_counts = {k: v - build_counts[k] for k, v in cuda_lib.launches.items()}
+    pa = timed("phase hnsw-add", phase_hnsw_add, dev, cfg, root, p4, pb)
+    graph_counts = dict(cuda_lib.launches)
+    if build_counts["gather_hamming_p2"] == 0 or build_counts["hamming_frac"] == 0:
+        raise AssertionError(f"the bulk build did not go through K2 parts=2 and K1: {build_counts}")
+    if request_counts["gather_hamming"] == 0 or request_counts["int_mm"] == 0:
+        raise AssertionError(f"the graph request did not go through K2 and the int8 matmul: "
+                             f"{request_counts}")
+    print(f"main-path launches, graph index (hnsw-build to hnsw-add): {graph_counts}")
+    tier_counts = {}
+    tiers = timed("phase tiers", phase_tiers, dev, cfg, pb, tier_counts)
+    print(f"main-path launches, tiers: {tier_counts}")
+    graph = {"build_s": pb["build_s"], "dump_s": pb["dump_s"], "stages": pb["stages"],
+             "request_s": pr["request_s"]}
+    del pb
+    launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] for k in flat_counts}
+
+    t = timed("phase 6", phase_timings, dev, cfg, p4, p5)
     print(f"phase 6 timings on {card}:")
     print(f"  tohnsw {p4['bases'] / 1e6:.1f} Mbases end to end {p4['build_s']:.2f} s; "
           f"request 8 queries: {p4['request_s']:.2f} s at 48 genomes, "
@@ -361,16 +664,41 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     if dev.type == "cuda":
         print(f"  K1 {cfg['k1']}: kernel {k1['ms']:.3f} ms, plain {k1['plain_ms']:.3f} ms; "
               f"8x48 (phase 4): kernel {k1['ms_8x48']:.4f} ms, plain {k1['plain_ms_8x48']:.4f} ms")
+        print(f"  K1 batched {cfg['k1_batch']}: kernel {k1['ms_batched']:.3f} ms, "
+              f"plain {k1['plain_ms_batched']:.3f} ms")
         print(f"  K2 {cfg['k2']}: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms")
-    return {"kernels": [
-        {"name": "hamming_frac", "route": "cuda", "source": "gsearch_tpu_torch/csrc/hamming.cu",
-         "replaces": "gsearch_tpu/ops/distance.py:69", "launches": counts["hamming_frac"],
-         "max_abs_err": max(k1[str(torch.float32)], k1[str(torch.int32)]),
+        for parts, ent in k2p.items():
+            print(f"  K2 parts={parts} {cfg['k2p']} x {ent['lanes']} lanes: kernel {ent['ms']:.3f} ms, "
+                  f"plain {ent['plain_ms']:.3f} ms")
+    stages = ", ".join(f"{k} {v:.2f} s" for k, v in graph["stages"].items())
+    print(f"  graph {cfg['hnsw_total']} x {cfg['sketch']}: bulk build {graph['build_s']:.1f} s "
+          f"({stages}); dump {graph['dump_s']:.1f} s; CLI request of 8 genomes "
+          f"{graph['request_s']:.1f} s")
+    for name in ("coarse", "packed", "packed8", "packed4", "beam"):
+        ent = tiers[name]
+        extra = f", {ent['hops']} hops, {ent['s'] / ent['hops'] * 1e3:.2f} ms a hop" if "hops" in ent else ""
+        print(f"  request {cfg['tier_queries']} queries, route {name}: {ent['s'] * 1e3:.1f} ms warm "
+              f"({ent['cold_s']:.2f} s cold){extra}")
+    print(f"  graph CLI: add of 8 genomes {pa['add_s']:.1f} s, request {pa['request_s']:.1f} s")
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
+    src = "gsearch_tpu_torch/csrc/hamming.cu"
+    kernels = [
+        {"name": "hamming_frac", "route": "cuda", "source": src,
+         "replaces": "gsearch_tpu/ops/distance.py:69", "launches": launches["hamming_frac"],
+         "max_abs_err": max(k1[str(torch.float32)], k1[str(torch.int32)], k1["batched"]),
          "ms": k1.get("ms"), "plain_ms": k1.get("plain_ms")},
-        {"name": "gather_hamming", "route": "cuda", "source": "gsearch_tpu_torch/csrc/hamming.cu",
-         "replaces": "gsearch_tpu/ops/distance.py:154", "launches": counts["gather_hamming"],
+        {"name": "gather_hamming", "route": "cuda", "source": src,
+         "replaces": "gsearch_tpu/ops/distance.py:154", "launches": launches["gather_hamming"],
          "max_abs_err": k2["err"], "ms": k2.get("ms"), "plain_ms": k2.get("plain_ms")},
-    ]}
+    ]
+    for parts, line in ((2, 201), (4, 207), (8, 217)):
+        ent = k2p[parts]
+        kernels.append({"name": f"gather_hamming_p{parts}", "route": "cuda", "source": src,
+                        "replaces": f"gsearch_tpu/ops/distance.py:{line}",
+                        "launches": launches[f"gather_hamming_p{parts}"],
+                        "max_abs_err": ent["err"], "ms": ent.get("ms"),
+                        "plain_ms": ent.get("plain_ms")})
+    return {"kernels": kernels}
 
 
 def main() -> int:

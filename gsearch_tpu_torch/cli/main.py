@@ -62,7 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("-n", "--nbanswers", type=int, required=True)
     r.add_argument("-r", "--query", required=True, dest="req_dir")
     r.add_argument("-o", "--out", default=".", help="output directory")
-    r.add_argument("--ef", type=int, default=0, help="graph search width (ignored by the flat index)")
+    r.add_argument("--ef", type=int, default=0,
+                   help="graph search width (0: the index's default; ignored by the flat index)")
 
     f = sub.add_parser("reformat", help="neighbors file -> TSV with ANI")
     f.add_argument("kmer", type=int)

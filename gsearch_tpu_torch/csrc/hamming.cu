@@ -19,14 +19,27 @@
 //   scratch, and a second kernel writes the distances; counts are integers,
 //   so the split does not change a bit.  Ragged edges are bounds masks: rows
 //   past Q or N are never written, columns past S are never compared, so no
-//   pad sentinels.
+//   pad sentinels.  A batch of independent [Q, S] x [N, S] problems (the
+//   graph index's candidate pair blocks, [B, C, S'] x [B, C, S']) shares one
+//   launch: gridDim.z = batch * splits, each block offsets its operands by
+//   its batch index.
 //
 // K2 gs_gather_hamming  replaces gsearch_tpu/ops/distance.py:
-//   gather_hamming_pallas / _gather_eq_kernel with parts=1.  For query i
-//   and candidate j reads db[ids[i, j]] by id: [Qc, R] distances.
+//   gather_hamming_pallas / _gather_eq_kernel, all four `parts` branches.
+//   For query i and candidate j reads db[ids[i, j]] by id: [Qc, R]
+//   distances 1 - eq / s_true over L int32 lanes a row.  parts = 1 counts
+//   equal lanes (raw 32-bit slots); parts = 2, 4, 8 count equal 16-, 8- and
+//   4-bit sub-fields of each lane (the hashed rerank tiers of
+//   gsearch_tpu_torch/ops/mxu.py: pack_hash16/8/4), SIMD within the word on
+//   x = a ^ b: __vcmpeq2 / __vcmpeq4 set a whole half or byte per equal
+//   field, so popc >> 4 (>> 3) counts them; for nibbles t = x | x >> 1,
+//   t |= t >> 2 leaves bit 4k set iff nibble k differs.  Pad fields never
+//   count (database pads 0, query pads 1 in every field), and s_true is the
+//   number of real slots, not the lane count.
 //   Bound: bytes, Qc * R * S * 4 (3.9 GB for 1024 queries x 80 candidates
-//   at S = 12000).  Design: one warp per candidate row, eight candidates of
-//   one query per block so the query row is served from L1/L2; 16-byte
+//   at S = 12000; a quarter of that for the 8-bit tier).  Design: one warp
+//   per candidate row, eight candidates of one query per block so the query
+//   row is served from L1/L2; 16-byte
 //   loads when both rows are 16-byte aligned, a scalar tail otherwise; a
 //   warp-shuffle reduction.  Ids outside [0, N) give +inf.  The TPU kernel
 //   writes (S - eq) / S, this one 1 - eq / S (the XLA rerank's form); the
@@ -45,13 +58,14 @@ constexpr int K1_TN = 64;       // database rows per block tile
 constexpr int K1_SK = 64;       // slots per shared-memory chunk
 constexpr int K1_THREADS = 256; // 16 x 16 threads, 2 x 4 outputs each
 
-// kSplit: this block covers S columns [blockIdx.z * span, ...) and adds its
-// counts into `counts`; otherwise it covers all of S and writes distances.
+// blockIdx.z = batch member * splits + split.  kSplit: this block covers S
+// columns [split * span, ...) and adds its counts into `counts`; otherwise it
+// covers all of S and writes distances.
 template <bool kSplit>
 __global__ void __launch_bounds__(K1_THREADS)
 eqcount_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ db,
                float* __restrict__ out, int* __restrict__ counts, int nq, int n,
-               int s, int span) {
+               int s, int span, int splits) {
   __shared__ int32_t sq[K1_TQ][K1_SK + 1];
   __shared__ int32_t sd[K1_TN][K1_SK + 1];
   const int tid = threadIdx.x;
@@ -59,7 +73,12 @@ eqcount_kernel(const int32_t* __restrict__ q, const int32_t* __restrict__ db,
   const int ty = tid / 16;  // queries ty + 16 * i
   const int q0 = blockIdx.y * K1_TQ;
   const int n0 = blockIdx.x * K1_TN;
-  const int s_begin = blockIdx.z * span;
+  const size_t b = blockIdx.z / splits;  // batch member
+  q += b * nq * s;
+  db += b * n * s;
+  out += b * nq * n;
+  if (kSplit) counts += b * nq * n;
+  const int s_begin = (blockIdx.z % splits) * span;
   const int s_end = min(s, s_begin + span);
   int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
 
@@ -114,10 +133,23 @@ __global__ void finish_kernel(const int* __restrict__ counts, float* __restrict_
 
 constexpr int K2_WARPS = 8;  // candidates per block, one warp each
 
+// Equal fields of two lanes (see the header note).
+template <int PARTS>
+__device__ __forceinline__ int eq_fields(int a, int b) {
+  if (PARTS == 1) return a == b;
+  const unsigned x = (unsigned)(a ^ b);
+  if (PARTS == 2) return __popc(__vcmpeq2(x, 0u)) >> 4;
+  if (PARTS == 4) return __popc(__vcmpeq4(x, 0u)) >> 3;
+  unsigned t = x | (x >> 1);
+  t |= t >> 2;
+  return 8 - __popc(t & 0x11111111u);
+}
+
+template <int PARTS>
 __global__ void __launch_bounds__(K2_WARPS * 32)
 gather_eq_kernel(const int32_t* __restrict__ db, const int32_t* __restrict__ q,
                  const int32_t* __restrict__ ids, float* __restrict__ out,
-                 int n, int s, int qc, int r, int blocks_per_query) {
+                 int n, int lanes, int s_true, int qc, int r, int blocks_per_query) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x / blocks_per_query;
@@ -129,33 +161,36 @@ gather_eq_kernel(const int32_t* __restrict__ db, const int32_t* __restrict__ q,
     if (lane == 0) out[o] = __int_as_float(0x7f800000);
     return;
   }
-  const int32_t* row = db + (size_t)id * s;
-  const int32_t* qrow = q + (size_t)i * s;
+  const int32_t* row = db + (size_t)id * lanes;
+  const int32_t* qrow = q + (size_t)i * lanes;
   int eq = 0;
   int done = 0;
   if ((((uintptr_t)row | (uintptr_t)qrow) & 15) == 0) {
     const int4* row4 = reinterpret_cast<const int4*>(row);
     const int4* q4 = reinterpret_cast<const int4*>(qrow);
-    const int nv = s >> 2;
+    const int nv = lanes >> 2;
 #pragma unroll 4
     for (int v = lane; v < nv; v += 32) {
       const int4 a = __ldg(row4 + v);
       const int4 b = __ldg(q4 + v);
-      eq += (a.x == b.x) + (a.y == b.y) + (a.z == b.z) + (a.w == b.w);
+      eq += eq_fields<PARTS>(a.x, b.x) + eq_fields<PARTS>(a.y, b.y) +
+            eq_fields<PARTS>(a.z, b.z) + eq_fields<PARTS>(a.w, b.w);
     }
     done = nv << 2;
   }
-  for (int c = done + lane; c < s; c += 32) eq += (__ldg(row + c) == __ldg(qrow + c));
+  for (int c = done + lane; c < lanes; c += 32)
+    eq += eq_fields<PARTS>(__ldg(row + c), __ldg(qrow + c));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) eq += __shfl_down_sync(0xffffffffu, eq, off);
-  if (lane == 0) out[o] = 1.0f - (float)eq / (float)s;
+  if (lane == 0) out[o] = 1.0f - (float)eq / (float)s_true;
 }
 
 }  // namespace
 
-// splits > 1 needs `counts`, an [nq, n] int32 scratch zeroed on the stream.
+// q [batch, nq, s], db [batch, n, s] -> out [batch, nq, n].  splits > 1
+// needs `counts`, a [batch, nq, n] int32 scratch zeroed on the stream.
 extern "C" int gs_hamming_frac(const void* q, const void* db, void* out, void* counts,
-                               int nq, int n, int s, int splits, int device,
+                               int batch, int nq, int n, int s, int splits, int device,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -163,34 +198,59 @@ extern "C" int gs_hamming_frac(const void* q, const void* db, void* out, void* c
   // each split covers a whole number of shared-memory chunks
   const int chunks = (s + K1_SK - 1) / K1_SK;
   const int span = ((chunks + splits - 1) / splits) * K1_SK;
-  const dim3 grid((n + K1_TN - 1) / K1_TN, (nq + K1_TQ - 1) / K1_TQ,
-                  (s + span - 1) / span);
-  if (grid.z == 1) {
+  const int nsplit = (s + span - 1) / span;
+  if ((long long)batch * nsplit > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid((n + K1_TN - 1) / K1_TN, (nq + K1_TQ - 1) / K1_TQ, batch * nsplit);
+  if (nsplit == 1) {
     eqcount_kernel<false><<<grid, K1_THREADS, 0, st>>>(
-        (const int32_t*)q, (const int32_t*)db, (float*)out, nullptr, nq, n, s, span);
+        (const int32_t*)q, (const int32_t*)db, (float*)out, nullptr, nq, n, s, span, 1);
     return (int)cudaGetLastError();
   }
   eqcount_kernel<true><<<grid, K1_THREADS, 0, st>>>(
-      (const int32_t*)q, (const int32_t*)db, (float*)out, (int*)counts, nq, n, s, span);
+      (const int32_t*)q, (const int32_t*)db, (float*)out, (int*)counts, nq, n, s, span,
+      nsplit);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t total = (size_t)nq * n;
+  const size_t total = (size_t)batch * nq * n;
   const unsigned blocks = (unsigned)((total + 255) / 256 < 65535 ? (total + 255) / 256 : 65535);
   finish_kernel<<<blocks, 256, 0, st>>>((const int*)counts, (float*)out, total, s);
   return (int)cudaGetLastError();
 }
 
+// db [n, lanes], q [qc, lanes] int32, ids [qc, r] int32 -> out [qc, r] f32;
+// parts in {1, 2, 4, 8} fields a lane.
 extern "C" int gs_gather_hamming(const void* db, const void* q, const void* ids,
-                                 void* out, int n, int s, int qc, int r,
-                                 int device, void* stream) {
+                                 void* out, int n, int lanes, int s_true, int parts,
+                                 int qc, int r, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int blocks_per_query = (r + K2_WARPS - 1) / K2_WARPS;
   const long long blocks = (long long)qc * blocks_per_query;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  gather_eq_kernel<<<(unsigned)blocks, K2_WARPS * 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)db, (const int32_t*)q, (const int32_t*)ids, (float*)out, n,
-      s, qc, r, blocks_per_query);
+  const dim3 grid((unsigned)blocks), block(K2_WARPS * 32);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t *d = (const int32_t*)db, *qq = (const int32_t*)q, *id = (const int32_t*)ids;
+  float* o = (float*)out;
+  switch (parts) {
+    case 1:
+      gather_eq_kernel<1><<<grid, block, 0, st>>>(d, qq, id, o, n, lanes, s_true, qc, r,
+                                                  blocks_per_query);
+      break;
+    case 2:
+      gather_eq_kernel<2><<<grid, block, 0, st>>>(d, qq, id, o, n, lanes, s_true, qc, r,
+                                                  blocks_per_query);
+      break;
+    case 4:
+      gather_eq_kernel<4><<<grid, block, 0, st>>>(d, qq, id, o, n, lanes, s_true, qc, r,
+                                                  blocks_per_query);
+      break;
+    case 8:
+      gather_eq_kernel<8><<<grid, block, 0, st>>>(d, qq, id, o, n, lanes, s_true, qc, r,
+                                                  blocks_per_query);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,10 @@
 Counterpart of gsearch_tpu/index/flat.py.  Signatures are kept on the host
 and uploaded at first search.  Routes: on a CUDA device with at least
 MXU_MIN_POINTS points the sign-expansion searcher (ops/mxu.py: int8
-matmul candidates, exact rerank through K2); otherwise the exact sweep
-through K1 (`bucketed_knn`).  The reference takes the first route where
+matmul candidates, rerank through K2), in the tier the reference's rule
+picks for (N, S): full width (exact distances) up to 65,536 genomes at
+S = 12,000, compact (16-bit hashed rerank) above; otherwise the exact
+sweep through K1 (`bucketed_knn`).  The reference takes the first route where
 JAX's default backend is a TPU.
 """
 
@@ -17,6 +19,7 @@ import torch
 
 from ..ops.distance import as_int32_rows, bucketed_knn
 from ..ops.mxu import MxuSearcher
+from .sigfile import load_sigs, save_sigs
 
 
 class FlatIndex:
@@ -69,12 +72,12 @@ class FlatIndex:
     # --- persistence ---------------------------------------------------------
 
     def save_arrays(self, prefix: str) -> dict:
-        np.save(prefix + ".sigs.npy", self._sigs)
+        save_sigs(prefix, self._sigs)
         return {"sig_file": "index.sigs.npy"}
 
     @classmethod
     def load_arrays(cls, prefix: str, meta: dict, device: torch.device) -> "FlatIndex":
-        sigs = np.load(prefix + ".sigs.npy")
+        sigs, _ = load_sigs(prefix)
         idx = cls(sketch_size=sigs.shape[1], sig_dtype=sigs.dtype, device=device)
         idx._sigs = sigs
         return idx

@@ -5,7 +5,8 @@ a database written by either package is requested by the other:
     parameters.json, seqdict.json, processing_state.json  (gsearch_tpu.core)
     index.meta.json    {kind, sig_dtype, nb_points, sketch_size, sig_file}
     index.sigs.npy     signature matrix [N, S]
-Only the flat kind is ported; the graph kinds raise.
+    index.graph.npz    (hnsw only) nbrs, nbr_d, entry_ids, pinned
+The flat and hnsw kinds are ported; the sharded graph kind raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from .flat import FlatIndex
+from .hnsw import HnswIndex
 
 INDEX_META_FILE = "index.meta.json"
 INDEX_PREFIX = "index"
@@ -40,17 +42,19 @@ def get_index_kind(dirpath: str) -> dict:
         return json.load(f)
 
 
-def load_index(dirpath: str, device: torch.device) -> FlatIndex:
+def load_index(dirpath: str, device: torch.device):
     meta = get_index_kind(dirpath)
-    if meta["kind"] != FlatIndex.KIND:
+    kinds = {FlatIndex.KIND: FlatIndex, HnswIndex.KIND: HnswIndex}
+    if meta["kind"] not in kinds:
         raise NotImplementedError(
-            f"index kind {meta['kind']!r} is not yet ported (ROADMAP.md: HNSW and "
-            "the sharded index); only flat databases can be loaded")
-    return FlatIndex.load_arrays(os.path.join(dirpath, INDEX_PREFIX), meta, device)
+            f"index kind {meta['kind']!r} is not yet ported (ROADMAP.md: the sharded "
+            "graph index with parallel/mesh.py); flat and hnsw databases can be loaded")
+    return kinds[meta["kind"]].load_arrays(os.path.join(dirpath, INDEX_PREFIX), meta, device)
 
 
-def from_jax_database(dirpath: str, device: torch.device = torch.device("cpu")) -> FlatIndex:
-    """Load a database written by gsearch_tpu into the port's FlatIndex."""
+def from_jax_database(dirpath: str, device: torch.device = torch.device("cpu")):
+    """Load a database written by gsearch_tpu into the port's FlatIndex or
+    HnswIndex."""
     return load_index(dirpath, device)
 
 

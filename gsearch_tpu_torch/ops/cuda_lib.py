@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "gsearch_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-launches = {"hamming_frac": 0, "gather_hamming": 0, "int_mm": 0}
+launches = {"hamming_frac": 0, "gather_hamming": 0, "gather_hamming_p2": 0,
+            "gather_hamming_p4": 0, "gather_hamming_p8": 0, "int_mm": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -79,9 +80,9 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.gs_hamming_frac.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+            lib.gs_hamming_frac.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
             lib.gs_hamming_frac.restype = i
-            lib.gs_gather_hamming.argtypes = [vp, vp, vp, vp, i, i, i, i, i, vp]
+            lib.gs_gather_hamming.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
             lib.gs_gather_hamming.restype = i
             lib.gs_error_string.argtypes = [i]
             lib.gs_error_string.restype = ctypes.c_char_p

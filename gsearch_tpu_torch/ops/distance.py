@@ -6,9 +6,12 @@ arithmetic) and distance = 1 - eq / S in f32, the formula of the reference's
 `hamming_frac_xla` and of its Pallas kernel's finish.
 
 Two kernels, each a wrapper beside its plain torch version:
-  - `hamming_frac` (K1): [Q, S] x [N, S] -> [Q, N];
+  - `hamming_frac` (K1): [Q, S] x [N, S] -> [Q, N], or a batch of such
+    problems [B, Q, S] x [B, N, S] -> [B, Q, N];
   - `gather_hamming` (K2): distances of Qc queries to R database rows
-    picked by id, [Qc, R].
+    picked by id, [Qc, R], over rows of raw 32-bit slots (`parts=1`) or of
+    packed 16-, 8- or 4-bit slot hashes (`parts=2, 4, 8`: the graph index's
+    rerank tiers and the compact searcher, ops/mxu.py).
 A CPU tensor takes the plain version; a CUDA tensor launches the
 hand-written kernel of csrc/hamming.cu (see the notes there) or raises.
 
@@ -39,12 +42,17 @@ def _distance(eq: torch.Tensor, s: int) -> torch.Tensor:
     return 1.0 - eq.to(torch.float32) / torch.tensor(float(s), dtype=torch.float32, device=eq.device)
 
 
-def as_int32_rows(sigs) -> torch.Tensor:
-    """Host signature rows (numpy f32, u32 or i32) as an int32 tensor of
-    their bit patterns, the form both kernels compare."""
+def sig_bits(sigs: np.ndarray) -> np.ndarray:
+    """Host signature rows (numpy f32, u32 or i32) as an int32 view of
+    their bit patterns, the form both kernels compare (no copy)."""
     if sigs.dtype not in (np.float32, np.uint32, np.int32):
         raise TypeError(f"unsupported signature dtype {sigs.dtype}")
-    return torch.from_numpy(np.ascontiguousarray(sigs).view(np.int32))
+    return sigs.view(np.int32)
+
+
+def as_int32_rows(sigs: np.ndarray) -> torch.Tensor:
+    """`sig_bits` of host rows as a contiguous int32 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(sig_bits(sigs)))
 
 
 def _as_i32(x: torch.Tensor, what: str) -> torch.Tensor:
@@ -56,15 +64,17 @@ def _as_i32(x: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def _check_rows(q: torch.Tensor, db: torch.Tensor) -> int:
-    if q.dim() != 2 or db.dim() != 2:
-        raise ValueError(f"expected 2-D signatures, got {tuple(q.shape)} and {tuple(db.shape)}")
+    if q.dim() not in (2, 3) or db.dim() != q.dim():
+        raise ValueError(f"expected 2-D or batched 3-D signatures, got {tuple(q.shape)} and {tuple(db.shape)}")
     if q.dtype != db.dtype:
         raise TypeError(f"dtype mismatch {q.dtype} vs {db.dtype}")
     if q.device != db.device:
         raise ValueError(f"device mismatch {q.device} vs {db.device}")
-    s = q.shape[1]
-    if db.shape[1] != s or s == 0:
-        raise ValueError(f"sketch sizes differ or are empty: {q.shape[1]} vs {db.shape[1]}")
+    if q.dim() == 3 and q.shape[0] != db.shape[0]:
+        raise ValueError(f"batch sizes differ: {q.shape[0]} vs {db.shape[0]}")
+    s = q.shape[-1]
+    if db.shape[-1] != s or s == 0:
+        raise ValueError(f"sketch sizes differ or are empty: {q.shape[-1]} vs {db.shape[-1]}")
     return s
 
 
@@ -82,15 +92,17 @@ def _cuda_args(*tensors: torch.Tensor, what: str) -> None:
 # ---- K1: all-pairs equal-count distance -------------------------------------
 
 def hamming_frac_plain(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """Plain torch K1: [Q, S] x [N, S] -> [Q, N] f32."""
+    """Plain torch K1: [Q, S] x [N, S] -> [Q, N] f32 (batched: [B, Q, N])."""
     s = _check_rows(q, db)
     qi, di = _as_i32(q, "hamming_frac"), _as_i32(db, "hamming_frac")
-    nq, n = qi.shape[0], di.shape[0]
-    eq = torch.empty((nq, n), dtype=torch.int32, device=q.device)
-    chunk = max(1, _PLAIN_ELEMS // max(1, nq * s))
+    if qi.dim() == 2:
+        return hamming_frac_plain(qi[None], di[None])[0]
+    nb, nq, n = qi.shape[0], qi.shape[1], di.shape[1]
+    eq = torch.empty((nb, nq, n), dtype=torch.int32, device=q.device)
+    chunk = max(1, _PLAIN_ELEMS // max(1, nb * nq * s))
     for start in range(0, n, chunk):
-        part = di[start : start + chunk]
-        eq[:, start : start + chunk] = (qi[:, None, :] == part[None, :, :]).sum(-1, dtype=torch.int32)
+        part = di[:, start : start + chunk]
+        eq[:, :, start : start + chunk] = (qi[:, :, None, :] == part[:, None, :, :]).sum(-1, dtype=torch.int32)
     return _distance(eq, s)
 
 
@@ -100,22 +112,23 @@ def hamming_frac(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return hamming_frac_plain(q, db)
     _cuda_args(q, db, what="hamming_frac")
-    if q.shape[0] > 65535 * 32:
-        raise ValueError("hamming_frac: too many queries for one launch")
     qi, di = _as_i32(q, "hamming_frac"), _as_i32(db, "hamming_frac")
-    nq, n = q.shape[0], db.shape[0]
-    out = torch.empty((nq, n), dtype=torch.float32, device=q.device)
+    batch = qi.shape[0] if qi.dim() == 3 else 1
+    nq, n = qi.shape[-2], di.shape[-2]
+    if nq > 65535 * 32 or batch > 65535:
+        raise ValueError("hamming_frac: too many queries or batch members for one launch")
+    out = torch.empty(qi.shape[:-1] + (n,), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
     # split S over enough blocks to give every SM a few when the 32 x 64
     # output tiles alone are too few (see csrc/hamming.cu)
-    tiles = -(-n // _K1_TN) * -(-nq // _K1_TQ)
+    tiles = batch * -(-n // _K1_TN) * -(-nq // _K1_TQ)
     want = _K1_BLOCKS_PER_SM * torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = max(1, min(-(-want // tiles), -(-s // _K1_SK)))
-    counts = torch.zeros((nq, n), dtype=torch.int32, device=q.device) if splits > 1 else out
+    splits = max(1, min(-(-want // tiles), -(-s // _K1_SK), 65535 // batch))
+    counts = torch.zeros(out.shape, dtype=torch.int32, device=q.device) if splits > 1 else out
     lib = cuda_lib.load()
     rc = lib.gs_hamming_frac(
-        qi.data_ptr(), di.data_ptr(), out.data_ptr(), counts.data_ptr(), nq, n, s, splits,
+        qi.data_ptr(), di.data_ptr(), out.data_ptr(), counts.data_ptr(), batch, nq, n, s, splits,
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(lib, rc, "gs_hamming_frac")
     cuda_lib.launches["hamming_frac"] += 1
@@ -124,37 +137,69 @@ def hamming_frac(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
 
 # ---- K2: distances to candidate rows picked by id ----------------------------
 
-def _check_gather(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor) -> int:
-    s = _check_rows(q, db)
+_PARTS = {1: "gather_hamming", 2: "gather_hamming_p2", 4: "gather_hamming_p4",
+          8: "gather_hamming_p8"}
+
+
+def _check_gather(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor, parts: int,
+                  s_true: int | None) -> int:
+    lanes = _check_rows(q, db)
+    if q.dim() != 2:
+        raise ValueError(f"gather_hamming takes 2-D rows, got {tuple(q.shape)}")
     if ids.dim() != 2 or ids.shape[0] != q.shape[0]:
         raise ValueError(f"ids must be [Qc, R] with Qc={q.shape[0]}, got {tuple(ids.shape)}")
     if ids.device != q.device:
         raise ValueError(f"device mismatch {ids.device} vs {q.device}")
-    return s
+    if parts not in _PARTS:
+        raise ValueError(f"parts must be one of {sorted(_PARTS)}, got {parts}")
+    s_true = lanes * parts if s_true is None else int(s_true)
+    if not 0 < s_true <= lanes * parts:
+        raise ValueError(f"s_true={s_true} outside (0, {lanes * parts}]")
+    return s_true
 
 
-def gather_hamming_plain(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Plain torch K2: d(q_i, db[ids[i, j]]) as [Qc, R] f32, +inf for ids
-    outside [0, N)."""
-    s = _check_gather(db, q, ids)
+def _eq_fields(x: torch.Tensor, parts: int) -> torch.Tensor:
+    """Equal fields of int32 lanes, summed over the last axis: x = a ^ b is
+    zero in a field iff the field is equal.  Halves and bytes are read
+    through an int16 / int8 view of the lanes; nibbles through a uint8 view
+    (no shift of a signed type, whose `>>` is arithmetic)."""
+    if parts == 1:
+        return (x == 0).sum(-1, dtype=torch.int32)
+    if parts == 2:
+        return (x.view(torch.int16) == 0).sum(-1, dtype=torch.int32)
+    if parts == 4:
+        return (x.view(torch.int8) == 0).sum(-1, dtype=torch.int32)
+    b = x.view(torch.uint8)
+    return ((b & 0xF) == 0).sum(-1, dtype=torch.int32) + ((b >> 4) == 0).sum(-1, dtype=torch.int32)
+
+
+def gather_hamming_plain(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor, *,
+                         parts: int = 1, s_true: int | None = None) -> torch.Tensor:
+    """Plain torch K2: 1 - eq / s_true of q_i against db[ids[i, j]] as
+    [Qc, R] f32, eq the equal fields of the lanes (`parts` a lane), +inf
+    for ids outside [0, N).  s_true defaults to lanes * parts."""
+    s_true = _check_gather(db, q, ids, parts, s_true)
     di, qi = _as_i32(db, "gather_hamming"), _as_i32(q, "gather_hamming")
     ids = ids.to(torch.int64)
     ok = (ids >= 0) & (ids < di.shape[0])
     safe = torch.where(ok, ids, 0)
     eq = torch.empty(ids.shape, dtype=torch.int32, device=q.device)
-    chunk = max(1, _PLAIN_ELEMS // max(1, ids.shape[1] * s))
+    chunk = max(1, _PLAIN_ELEMS // max(1, ids.shape[1] * qi.shape[1]))
     for start in range(0, ids.shape[0], chunk):
-        rows = di[safe[start : start + chunk]]  # [c, R, S]
-        eq[start : start + chunk] = (rows == qi[start : start + chunk, None, :]).sum(-1, dtype=torch.int32)
-    return torch.where(ok, _distance(eq, s), torch.inf)
+        rows = di[safe[start : start + chunk]]  # [c, R, L]
+        eq[start : start + chunk] = _eq_fields(rows ^ qi[start : start + chunk, None, :], parts)
+    return torch.where(ok, _distance(eq, s_true), torch.inf)
 
 
-def gather_hamming(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def gather_hamming(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor, *,
+                   parts: int = 1, s_true: int | None = None) -> torch.Tensor:
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU ones.  db [N, S] and q [Qc, S] f32 or int32, ids [Qc, R] int32."""
-    s = _check_gather(db, q, ids)
+    CPU ones.  db [N, L] and q [Qc, L] f32 or int32 lanes, ids [Qc, R]
+    int32.  Launches count under gather_hamming (parts=1) or
+    gather_hamming_p{parts}."""
+    s_true = _check_gather(db, q, ids, parts, s_true)
     if q.device.type == "cpu":
-        return gather_hamming_plain(db, q, ids)
+        return gather_hamming_plain(db, q, ids, parts=parts, s_true=s_true)
     _cuda_args(db, q, ids, what="gather_hamming")
     if ids.dtype != torch.int32:
         raise TypeError(f"gather_hamming: ids must be int32, got {ids.dtype}")
@@ -164,11 +209,11 @@ def gather_hamming(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor) -> torc
         return out
     lib = cuda_lib.load()
     rc = lib.gs_gather_hamming(
-        di.data_ptr(), qi.data_ptr(), ids.data_ptr(), out.data_ptr(), di.shape[0], s,
-        ids.shape[0], ids.shape[1], q.device.index,
+        di.data_ptr(), qi.data_ptr(), ids.data_ptr(), out.data_ptr(), di.shape[0], di.shape[1],
+        s_true, parts, ids.shape[0], ids.shape[1], q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda_lib.check(lib, rc, "gs_gather_hamming")
-    cuda_lib.launches["gather_hamming"] += 1
+    cuda_lib.launches[_PARTS[parts]] += 1
     return out
 
 

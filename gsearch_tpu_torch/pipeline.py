@@ -2,11 +2,10 @@
 
 Counterpart of gsearch_tpu/pipeline.py on one torch device: host ingest
 (walk + parse on a producer thread, parallel parse workers) -> device
-sketching -> flat index -> dump, and the request path that reloads a
-database, sketches the queries and writes gsearch.neighbors.txt.  Only the
-flat index is ported: asking for the graph index, or growing a flat
-database past the size where the reference migrates it to one, raises.
-Mesh sharding is not ported and is rejected.
+sketching -> flat or graph index -> dump, and the request path that reloads
+a database, sketches the queries and writes gsearch.neighbors.txt.  `add`
+converts a flat database that grows past `flat_auto_limit` to the graph
+index, as the reference does.  Mesh sharding is not ported and is rejected.
 """
 
 from __future__ import annotations
@@ -28,7 +27,8 @@ from gsearch_tpu.results.answer import Neighbour, ReqAnswer
 from gsearch_tpu.results.matcher import Matcher
 
 from .index.flat import FlatIndex
-from .index.serialize import dumpall, load_index
+from .index.hnsw import HnswIndex
+from .index.serialize import dumpall, get_index_kind, load_index
 from .models import make_sketcher
 from .utils import StageTimer, get_logger
 
@@ -169,15 +169,21 @@ def _sketch_dir(
 
 
 def _new_index(params: ProcessingParams, sig_dtype, kind: str, nb_hint: int,
-               device: torch.device) -> FlatIndex:
+               device: torch.device):
     if kind == "auto":
         kind = "flat" if nb_hint <= flat_auto_limit(params.sketch.sketch_size) else "hnsw"
-    if kind != "flat":
-        raise NotImplementedError(
-            f"index kind {kind!r} is not yet ported (ROADMAP.md: HNSW and the "
-            f"sharded index); the flat index holds up to "
-            f"{flat_auto_limit(params.sketch.sketch_size)} genomes at s={params.sketch.sketch_size}")
-    return FlatIndex(params.sketch.sketch_size, sig_dtype, device)
+    if kind == "flat":
+        return FlatIndex(params.sketch.sketch_size, sig_dtype, device)
+    if kind != "hnsw":
+        raise ValueError(f"unknown index kind {kind!r}")
+    return HnswIndex(
+        sketch_size=params.sketch.sketch_size,
+        sig_dtype=sig_dtype,
+        max_nb_conn=params.hnsw.max_nb_conn,
+        ef_construction=params.hnsw.ef,
+        scale_modification=params.hnsw.scale_modification,
+        device=device,
+    )
 
 
 def build_database(genome_dir: str, out_dir: str, params: ProcessingParams,
@@ -207,6 +213,24 @@ def build_database(genome_dir: str, out_dir: str, params: ProcessingParams,
     return {"nb_points": index.nb_points, "elapsed_s": time.time() - t0, "stages": report}
 
 
+def _migrate_flat_if_needed(index, params: ProcessingParams, n_after: int,
+                            device: torch.device):
+    """`add` growth guard: a flat database pushed past the flat auto-limit
+    is converted to the graph index (a build over the existing signatures)
+    before the new points go in, as gsearch_tpu does."""
+    if not isinstance(index, FlatIndex):
+        return index
+    if n_after <= flat_auto_limit(params.sketch.sketch_size):
+        return index
+    log.info(
+        "flat database would grow to %d points (> auto-limit %d at s=%d): "
+        "converting to hnsw before the add",
+        n_after, flat_auto_limit(params.sketch.sketch_size), params.sketch.sketch_size)
+    new = _new_index(params, index.sig_dtype, "hnsw", n_after, device)
+    new.insert(index.get_sigs())
+    return new
+
+
 def add_to_database(db_dir: str, new_dir: str, computing: ComputingParams | None = None,
                     *, device: torch.device) -> dict:
     """add: incremental insertion, parameters reloaded from the database."""
@@ -221,12 +245,7 @@ def add_to_database(db_dir: str, new_dir: str, computing: ComputingParams | None
     timer = StageTimer()
     t0 = time.time()
     sigs = _sketch_dir(new_dir, params, computing, seqdict, timer, device)
-    if len(seqdict) > flat_auto_limit(params.sketch.sketch_size):
-        # the reference migrates such a database to its graph index
-        raise NotImplementedError(
-            f"the flat database would grow to {len(seqdict)} points, past the flat "
-            f"limit {flat_auto_limit(params.sketch.sketch_size)}, where gsearch_tpu "
-            "converts it to HNSW, which is not yet ported (ROADMAP.md)")
+    index = _migrate_flat_if_needed(index, params, len(seqdict), device)
     with timer.stage("index_insert"):
         index.insert(np.stack(sigs))
     state.nb_seq = len(seqdict)
@@ -235,6 +254,42 @@ def add_to_database(db_dir: str, new_dir: str, computing: ComputingParams | None
     dumpall(db_dir, index, seqdict, params, state)
     log.info("add done: now %d points (+%d)", index.nb_points, len(sigs))
     return {"nb_points": index.nb_points, "added": len(sigs)}
+
+
+def database_sketcher(db_dir: str, *, device: torch.device):
+    """The sketcher of the database at db_dir (its k, s and algorithm)."""
+    return make_sketcher(ProcessingParams.reload_json(db_dir).sketch, device=device)
+
+
+def read_genomes(genome_dir: str) -> list:
+    """Each DNA FASTA file under genome_dir as one genome (its records
+    concatenated, block mode's unit), in walk order."""
+    return [concat_file_codes_packed(p)[0] for p in walk_fasta_dir(genome_dir)]
+
+
+def empty_index_like(db_dir: str, kind: str, *, device: torch.device):
+    """An empty index of `kind` ("flat" or "hnsw") with the parameters and
+    signature type of the database at db_dir."""
+    params = ProcessingParams.reload_json(db_dir)
+    sig_dtype = np.dtype(get_index_kind(db_dir)["sig_dtype"])
+    return _new_index(params, sig_dtype, kind, 0, device)
+
+
+def dump_with_placeholders(src_dir: str, out_dir: str, index) -> None:
+    """Dump `index` as a database whose first points are the genomes of the
+    database at src_dir (whose parameters it keeps) and whose further
+    points are placeholder genomes `decoys/d{i}.fna` with no sequence file
+    behind them: signatures synthesised to grow a database to a size."""
+    params = ProcessingParams.reload_json(src_dir)
+    seqdict = SeqDict.reload_json(src_dir)
+    state = ProcessingState.reload_json(src_dir)
+    if index.nb_points < len(seqdict):
+        raise ValueError(f"index holds {index.nb_points} points, fewer than {src_dir}'s "
+                         f"{len(seqdict)} genomes")
+    for i in range(index.nb_points - len(seqdict)):
+        seqdict.push(ItemDict(id=Id(path=f"decoys/d{i}.fna", fasta_id=f"d{i}"), len=0))
+    state.nb_seq = len(seqdict)
+    dumpall(out_dir, index, seqdict, params, state)
 
 
 def request_database(db_dir: str, req_dir: str, nb_answers: int,

@@ -10,9 +10,11 @@ import pytest
 import torch
 
 from gsearch_tpu.core.params import SeqSketcherParams
+from gsearch_tpu_torch.index.hnsw import HnswIndex
 from gsearch_tpu_torch.models import make_sketcher
 from gsearch_tpu_torch.ops import cuda_lib
 from gsearch_tpu_torch.ops import distance as tdist
+from gsearch_tpu_torch.ops import mxu as tmxu
 from gsearch_tpu_torch.ops.mxu import MxuSearcher
 
 pytestmark = pytest.mark.cuda
@@ -36,6 +38,50 @@ def test_k1_kernel_matches_plain(cuda_device, dtype):
         got = tdist.hamming_frac(q, db)
         assert cuda_lib.launches["hamming_frac"] == before + 1
         assert torch.equal(got.view(torch.int32), tdist.hamming_frac_plain(q, db).view(torch.int32))
+
+
+def test_k1_batched_kernel_matches_plain(cuda_device):
+    """The graph index's candidate pair blocks: [B, C, S'] x [B, C, S']."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for b, c, s in ((1, 3, 5), (37, 96, 128), (300, 64, 1024)):
+        rows = (torch.rand((b, c, s), generator=gen, device=cuda_device) * 3).to(torch.int32)
+        before = cuda_lib.launches["hamming_frac"]
+        got = tdist.hamming_frac(rows, rows)
+        assert cuda_lib.launches["hamming_frac"] == before + 1
+        want = tdist.hamming_frac_plain(rows, rows)
+        assert got.shape == (b, c, c)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+_PACKERS = {2: tmxu.pack_hash16, 4: tmxu.pack_hash8, 8: tmxu.pack_hash4}
+
+
+@pytest.mark.parametrize("parts", [2, 4, 8])
+def test_k2_packed_kernel_matches_plain(cuda_device, parts):
+    """K2 parts=2/4/8 bitwise against its plain version: packed hashes with
+    query and database pads, ragged and odd lane counts, repeated and
+    out-of-range ids; launches counted under gather_hamming_p{parts}."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6 + parts)
+    for qc, r, n, s in ((1, 1, 5, 7), (33, 80, 2000, 1201), (64, 160, 3000, 12000)):
+        base = torch.rand((n, s), generator=gen, device=cuda_device)
+        keep = torch.rand((qc, s), generator=gen, device=cuda_device) < 0.7
+        q = torch.where(keep, base[torch.arange(qc, device=cuda_device) % n], 0.5).contiguous()
+        spad = -(-s // (32 * parts)) * 32 * parts  # lanes a multiple of 32: 16-byte path
+        db_p = _PACKERS[parts](base, spad=spad, pad_val=0)
+        q_p = _PACKERS[parts](q, spad=spad, pad_val=1)
+        ids = torch.randint(-2, n + 2, (qc, r), generator=gen, device=cuda_device, dtype=torch.int32)
+        ids[:, r // 2:] = ids[:, : r - r // 2]
+        name = f"gather_hamming_p{parts}"
+        before = cuda_lib.launches[name]
+        got = tdist.gather_hamming(db_p, q_p, ids, parts=parts, s_true=s)
+        assert cuda_lib.launches[name] == before + 1
+        want = tdist.gather_hamming_plain(db_p, q_p, ids, parts=parts, s_true=s)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        # an odd lane count: rows not 16-byte aligned take the scalar path
+        db_o, q_o = db_p[:, 1:].contiguous(), q_p[:, 1:].contiguous()
+        got = tdist.gather_hamming(db_o, q_o, ids, parts=parts)
+        want = tdist.gather_hamming_plain(db_o, q_o, ids, parts=parts)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_k2_kernel_matches_plain(cuda_device):
@@ -86,5 +132,37 @@ def test_mxu_searcher_on_card_matches_cpu(cuda_device):
     got = MxuSearcher(db, cuda_device).search(q, 10)
     assert cuda_lib.launches["gather_hamming"] == before["gather_hamming"] + 1
     want = MxuSearcher(db, torch.device("cpu")).search(q, 10)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].view(np.uint32), want[0].view(np.uint32))
+
+
+def _cloud(rng, n, s, n_clusters):
+    centers = rng.integers(0, 1 << 30, size=(n_clusters, s)).astype(np.uint32)
+    sigs = centers[np.arange(n) % n_clusters].copy()
+    redraw = rng.random((n, s)) < rng.uniform(0.0, 0.5, size=(n, 1))
+    sigs[redraw] = rng.integers(0, 1 << 30, size=int(redraw.sum()), dtype=np.uint32)
+    return sigs
+
+
+def test_hnsw_on_card_matches_cpu(cuda_device):
+    """The beam-path build and the beam-route search (n=3000 < COARSE_MIN)
+    on the card equal the CPU path's: graph arrays, ids and distances."""
+    rng = np.random.default_rng(12)
+    n, s = 3000, 1024
+    sigs = _cloud(rng, n + 24, s, 32)
+    kw = dict(sketch_size=s, sig_dtype=np.uint32, max_nb_conn=16, ef_construction=64,
+              search_prefix=256)
+    idx = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        idx[dev.type] = HnswIndex(**kw, device=dev)
+        idx[dev.type].insert(sigs[:n], batch_size=512, bulk=False)
+    for name in ("_nbrs", "_nbr_d", "_entry_ids", "_pinned"):
+        np.testing.assert_array_equal(getattr(idx["cuda"], name), getattr(idx["cpu"], name))
+    before = dict(cuda_lib.launches)
+    got = idx["cuda"].search(sigs[n:], 10, ef_search=128)
+    assert idx["cuda"].stats["search"]["route"] == "beam"
+    assert cuda_lib.launches["gather_hamming"] > before["gather_hamming"]
+    assert cuda_lib.launches["hamming_frac"] > before["hamming_frac"]
+    want = idx["cpu"].search(sigs[n:], 10, ef_search=128)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0].view(np.uint32), want[0].view(np.uint32))

@@ -1,7 +1,9 @@
 """The verify recipe (8 genomes, one 1%-mutated query, k=16, s=1024, block
-mode) through both CLIs: identical signatures, neighbours files and ANI
-tables, each package requesting the other's database; the port's CLI run
-as `python -m gsearch_tpu_torch ... --device cpu` imports no JAX."""
+mode) through both CLIs, with the flat and the graph (`--index hnsw`)
+index: identical signatures, graphs, neighbours files and ANI tables, each
+package requesting the other's database; an `add` that migrates a flat
+database to the graph; the port's CLI run as `python -m gsearch_tpu_torch
+... --device cpu` imports no JAX."""
 
 import os
 import shutil
@@ -12,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import gsearch_tpu.pipeline as jax_pipeline
+import gsearch_tpu_torch.pipeline as torch_pipeline
 from gsearch_tpu.cli.main import main as jax_main
 from gsearch_tpu_torch.cli.main import main as torch_main
 
@@ -105,8 +109,12 @@ def test_add_then_request(recipe, tmp_path):
 def test_unported_paths_raise(recipe, tmp_path):
     root, _ = recipe
     db = str(root / "db_genomes")
+    sharded = tmp_path / "sharded"
+    shutil.copytree(root / "db_torch", sharded)
+    (sharded / "index.meta.json").write_text('{"kind": "hnsw_sharded"}')
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main(["tohnsw", "-d", db, *BUILD, "--index", "hnsw", "-o", str(tmp_path / "h"), "--device", "cpu"])
+        torch_main(["request", "-b", str(sharded), "-n", "5", "-r", str(root / "queries"),
+                    "-o", str(tmp_path / "o"), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="mesh"):
         torch_main(["--mesh", "2", "tohnsw", "-d", db, *BUILD, "-o", str(tmp_path / "m"), "--device", "cpu"])
     if not torch.cuda.is_available():
@@ -114,13 +122,124 @@ def test_unported_paths_raise(recipe, tmp_path):
             torch_main(["tohnsw", "-d", db, *BUILD, "-o", str(tmp_path / "c")])
 
 
+def _graph_arrays(db) -> dict:
+    with np.load(db / "index.graph.npz") as g:
+        arrays = {k: g[k] for k in g.files}
+    arrays["sigs"] = np.load(db / "index.sigs.npy")
+    return arrays
+
+
+def _assert_same_graph(a, b):
+    ga, gb = _graph_arrays(a), _graph_arrays(b)
+    assert sorted(ga) == sorted(gb) == ["entry_ids", "nbr_d", "nbrs", "pinned", "sigs"]
+    for k in ga:
+        assert ga[k].dtype == gb[k].dtype, k
+        np.testing.assert_array_equal(ga[k], gb[k], err_msg=k)
+    assert (a / "index.meta.json").read_bytes() == (b / "index.meta.json").read_bytes()
+
+
+@pytest.fixture(scope="module")
+def hnsw_recipe(recipe):
+    """The verify recipe built with `--index hnsw` by both CLIs, each
+    package requesting both databases."""
+    root, _ = recipe
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        assert jax_main(["tohnsw", "-d", "db_genomes", *BUILD, "--index", "hnsw", "-o", "hdb_jax"]) == 0
+        assert torch_main(["tohnsw", "-d", "db_genomes", *BUILD, "--index", "hnsw", "-o", "hdb_torch",
+                           "--device", "cpu"]) == 0
+        outs = {}
+        for db in ("hdb_jax", "hdb_torch"):
+            for pkg, run in (("jax", jax_main), ("torch", torch_main)):
+                out = f"hreq_{pkg}_{db}"
+                extra = ["--device", "cpu"] if pkg == "torch" else []
+                assert run(["request", "-b", db, "-n", "5", "-r", "queries", "-o", out, "--ef", "64",
+                            *extra]) == 0
+                assert run(["reformat", "16", "1", f"{out}/gsearch.neighbors.txt", f"{out}/ani.tsv"]) == 0
+                outs[(pkg, db)] = out
+    finally:
+        os.chdir(cwd)
+    return root, outs
+
+
+def test_hnsw_recipe_graphs_and_answers_identical(hnsw_recipe):
+    root, outs = hnsw_recipe
+    assert '"kind": "hnsw"' in (root / "hdb_torch" / "index.meta.json").read_text()
+    _assert_same_graph(root / "hdb_jax", root / "hdb_torch")
+    ref = outs[("jax", "hdb_jax")]
+    for key, out in outs.items():
+        for name in ("gsearch.neighbors.txt", "ani.tsv"):
+            assert (root / out / name).read_bytes() == (root / ref / name).read_bytes(), (key, name)
+    best = (root / ref / "ani.tsv").read_text().splitlines()[1].split("\t")
+    assert best[0] == "q.fna" and best[2] == "g0.fna" and abs(float(best[4]) - 99.0) < 1.0
+
+
+def test_add_migrates_flat_to_hnsw_like_reference(recipe, tmp_path, monkeypatch):
+    """An `add` that grows a flat database past (a lowered) flat_auto_limit
+    converts it to the graph index in both packages: equal graphs, and the
+    added genome is found at distance 0."""
+    root, _ = recipe
+    for mod in (jax_pipeline, torch_pipeline):
+        monkeypatch.setattr(mod, "flat_auto_limit", lambda sketch_size: 8)
+    rng = np.random.default_rng(11)
+    (tmp_path / "new").mkdir()
+    newg = bytes(rng.choice(np.frombuffer(b"ACGT", np.uint8), 12000))
+    (tmp_path / "new" / "new.fna").write_bytes(b">x\n" + newg + b"\n")
+    dbs = {}
+    for pkg, run, extra in (("jax", jax_main, []), ("torch", torch_main, ["--device", "cpu"])):
+        db = tmp_path / f"db_{pkg}"
+        shutil.copytree(root / "db_jax", db)
+        assert run(["add", "-b", str(db), "-n", str(tmp_path / "new"), *extra]) == 0
+        dbs[pkg] = db
+    assert '"kind": "hnsw"' in (dbs["torch"] / "index.meta.json").read_text()
+    _assert_same_graph(dbs["jax"], dbs["torch"])
+    out = tmp_path / "out"
+    assert torch_main(["request", "-b", str(dbs["torch"]), "-n", "3", "-r", str(tmp_path / "new"),
+                       "-o", str(out), "--device", "cpu"]) == 0
+    hits = [l for l in (out / "gsearch.neighbors.txt").read_text().splitlines() if l.startswith("query_id:")]
+    assert "new.fna" in hits[0] and "0.00000E0" in hits[0]
+
+
+def test_grown_database_with_placeholders(recipe, tmp_path, monkeypatch):
+    """The port's helpers that grow a database with synthetic signatures:
+    the database's sketcher re-sketches its genomes bit for bit; a graph
+    index holding them plus uniform decoys, dumped with placeholder names,
+    is requested by gsearch_tpu with the flat database's answers (every
+    decoy lies above the 0.99 output threshold)."""
+    root, outs = recipe
+    cpu = torch.device("cpu")
+    src = str(root / "db_torch")
+    sketcher = torch_pipeline.database_sketcher(src, device=cpu)
+    sigs = sketcher.sketch_many(torch_pipeline.read_genomes(str(root / "db_genomes")))
+    np.testing.assert_array_equal(sigs.view(np.uint32), np.load(root / "db_torch" / "index.sigs.npy").view(np.uint32))
+    idx = torch_pipeline.empty_index_like(src, "hnsw", device=cpu)
+    decoys = np.random.default_rng(5).random((40, sigs.shape[1]), dtype=np.float32)
+    idx.insert(np.concatenate([sigs, decoys]))
+    torch_pipeline.dump_with_placeholders(src, str(tmp_path / "grown"), idx)
+    names = (tmp_path / "grown" / "seqdict.json").read_text()
+    assert "g7.fna" in names and "decoys/d39.fna" in names and "decoys/d40.fna" not in names
+    monkeypatch.chdir(root)
+    assert jax_main(["request", "-b", str(tmp_path / "grown"), "-n", "5", "-r", "queries",
+                     "-o", str(tmp_path / "out")]) == 0
+    ref = root / outs[("jax", "db_jax")] / "gsearch.neighbors.txt"
+    assert (tmp_path / "out" / "gsearch.neighbors.txt").read_bytes() == ref.read_bytes()
+    with pytest.raises(ValueError, match="fewer"):
+        torch_pipeline.dump_with_placeholders(src, str(tmp_path / "bad"),
+                                              torch_pipeline.empty_index_like(src, "flat", device=cpu))
+
+
 def test_python_m_run_imports_no_jax(recipe, tmp_path):
-    """A fresh interpreter running the port's CLI never imports jax, nor the
-    JAX-bound parts of gsearch_tpu; its neighbours file equals the reference's."""
+    """A fresh interpreter running the port's CLI, with the flat and the
+    graph index, never imports jax, nor the JAX-bound parts of gsearch_tpu;
+    its neighbours files equal the reference's."""
     root, outs = recipe
     env = dict(os.environ, PYTHONPATH=REPO)
-    cmds = [["tohnsw", "-d", "db_genomes", *BUILD, "-o", str(tmp_path / "db")],
-            ["request", "-b", str(tmp_path / "db"), "-n", "5", "-r", "queries", "-o", str(tmp_path / "out")]]
+    cmds = []
+    for kind in ("flat", "hnsw"):
+        db, out = tmp_path / f"db_{kind}", tmp_path / f"out_{kind}"
+        cmds += [["tohnsw", "-d", "db_genomes", *BUILD, "--index", kind, "-o", str(db)],
+                 ["request", "-b", str(db), "-n", "5", "-r", "queries", "-o", str(out)]]
     for cmd in cmds:
         proc = subprocess.run([sys.executable, "-X", "importtime", "-m", "gsearch_tpu_torch", *cmd,
                                "--device", "cpu"], cwd=root, env=env, capture_output=True, text=True,
@@ -129,8 +248,11 @@ def test_python_m_run_imports_no_jax(recipe, tmp_path):
         modules = {line.rsplit("|", 1)[-1].strip() for line in proc.stderr.splitlines()
                    if line.startswith("import time:")}
         assert "gsearch_tpu_torch.pipeline" in modules
+        assert "gsearch_tpu_torch.index.hnsw" in modules
         banned = [m for m in modules if m == "jax" or m.startswith("jax.") or m in (
             "gsearch_tpu.utils", "gsearch_tpu.index", "gsearch_tpu.models")]
         assert not banned, banned
+    assert '"kind": "hnsw"' in (tmp_path / "db_hnsw" / "index.meta.json").read_text()
     ref = root / outs[("jax", "db_jax")] / "gsearch.neighbors.txt"
-    assert (tmp_path / "out" / "gsearch.neighbors.txt").read_bytes() == ref.read_bytes()
+    for kind in ("flat", "hnsw"):
+        assert (tmp_path / f"out_{kind}" / "gsearch.neighbors.txt").read_bytes() == ref.read_bytes()
