@@ -5,9 +5,14 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`.
 Every phase raises on failure, so any fault exits non-zero; without a
 CUDA card it exits non-zero before printing any result.
 
-  1. the card's name and power limit; build the CUDA kernels (timed);
-  2. K1 (`hamming_frac`) against its plain version at Q=37, N=4095,
-     S=12000, f32 and int32 inputs: bitwise equal;
+  1. the card's name and power limit; build the CUDA kernels and the
+     port's native FASTA parser from the sources (timed);
+  2. K1 against its plain version, bitwise, f32 and int32: each tile
+     (wide, narrow16, narrow8) forced and the plan's own at Q=37, N=4095,
+     S=12000 (all split S), 8 x 48 (phase 4's request, split), 512 x 4095;
+     the self-pair form `hamming_frac_self` at the bulk build's pair blocks
+     [1024, 128, 1024] (symmetric, 0.0 on the diagonal); each timed against
+     its plain version, `torch.cdist(p=0)` and its bound;
   3. K2 (`gather_hamming`) against its plain version at Qc=1024, R=80,
      N=65536, S=12000 with repeated and out-of-range ids: bitwise equal;
   4. the CLI slice in-process: a seeded corpus of 48 genomes (1.5-6 Mb,
@@ -20,8 +25,8 @@ CUDA card it exits non-zero before printing any result.
      then, with that database's sketcher, signatures on the card equal the
      CPU path's on a small input;
   6. timings beside the card's name: sketch Mbases/s, request qps at
-     65,536 x 12,000 (1,024 queries, k = 10), K1 and K2 against their
-     plain versions;
+     65,536 x 12,000 (1,024 queries, k = 10), each kernel against its plain
+     version, its library call (K1) and its bound;
   K2-packed. K2 parts=2/4/8 against its plain version, bitwise, at the
      graph index's tier shapes: Qc=1024, R=160, N=262,144, 6,144 / 3,072 /
      2,048 lanes (12,000 slots as 16-, 8- and 4-bit hashes), with repeated
@@ -41,11 +46,15 @@ CUDA card it exits non-zero before printing any result.
      with the full tier and the beam route reach tie-aware recall@10 >= 0.99;
      the packed, packed8 and packed4 tiers, forced by lowering
      `_RERANK_DEVICE_BYTES`, overlap the full tier's ids by >= 0.95, 0.9 and
-     0.9; each route timed as a request of 1,024 queries.
+     0.9; each route timed as a request of 1,024 queries; K2's launches of
+     one coarse-route request (the prefix rerank's four 256-query chunks and
+     the full tier) timed with the ids that request produced, against the
+     bound of the unique rows they reference.
 The launch counters are zeroed just before each main-path run and read just
 after it: phases 4-5 (K1 in phase 4, K2 and the int8 matmul in phase 5);
-hnsw-build to hnsw-add (K2 parts=2 in the bulk build, K2 and the int8
-matmul in the request); tiers (K2 parts=4 and 8).  The line before the last
+hnsw-build to hnsw-add (K2 parts=2 and K1's self pairs in the bulk build,
+K2 and the int8 matmul in the request, K1 and its self pairs in the add);
+tiers (K2 parts=4 and 8).  The line before the last
 is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -100,6 +109,45 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, kernel: str):
+    """Mean device time a call of the launches of kernels whose name holds
+    `kernel`, from torch.profiler (host overhead excluded); None when the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", 0) or 0 for e in prof.key_averages()
+                if kernel in e.key)
+    return total / reps / 1e3 if total else None
+
+
+def sm_clock_under(fn, launches: int) -> dict:
+    """The SM clock and power nvidia-smi reads every 100 ms while `launches`
+    calls of fn run back to back: medians over the samples."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                             "--format=csv,noheader,nounits", "-lms", "100"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        time.sleep(0.3)
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = [line.split(",") for line in out.splitlines() if line.count(",") == 1]
+    samples = [(float(a), float(b)) for a, b in rows if a.strip() and b.strip()][3:]
+    if not samples:
+        return {"sm_clock_mhz": None, "power_w": None}
+    return {"sm_clock_mhz": statistics.median(c for c, _ in samples),
+            "power_w": statistics.median(w for _, w in samples)}
+
+
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
 
@@ -121,47 +169,122 @@ def perturbed(rows: torch.Tensor, gen: torch.Generator, max_frac: float = 1.0) -
     return torch.where(redraw, fresh, rows).contiguous()
 
 
+# H100 SXM peaks for the bounds: HBM bytes/s, and 32-bit integer ops/s as
+# SMs x 64 INT32 lanes x 1.98 GHz boost (one compare-and-count is one op)
+HBM_BYTES_S = 3.35e12
+INT_LANES_SM, BOOST_HZ = 64, 1.98e9
+
+
+def bound(nbytes: float, ops: float, sms: int) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    HBM's rate and the integer ops over the INT32 lanes' rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / (sms * INT_LANES_SM * BOOST_HZ)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def k1_bound(batch: int, nq: int, n: int, s: int, sms: int, pairs: bool = False) -> dict:
+    """K1's work: each input read once, the output written once, and one
+    op per slot compare the function needs (self pairs: C(C-1)/2 pairs)."""
+    nbytes = 4 * batch * ((n if pairs else nq + n) * s + nq * n)
+    pairs_needed = n * (n - 1) // 2 if pairs else nq * n
+    return bound(nbytes, batch * pairs_needed * s, sms)
+
+
+def k2_bound(db: torch.Tensor, ids: torch.Tensor, sms: int) -> dict:
+    """K2's work: the rows the ids reference, each read once (the unique
+    valid ids), the query rows, the ids and the output; one op per lane
+    compare."""
+    qc, r = ids.shape
+    lanes = db.shape[1]
+    valid = ids[(ids >= 0) & (ids < db.shape[0])]
+    unique = int(torch.unique(valid).numel())
+    return {"unique_rows": unique,
+            **bound(4 * (unique * lanes + qc * lanes + 2 * qc * r), qc * r * lanes, sms)}
+
+
 def phase_k1(dev, cfg, gen) -> dict:
-    """K1 at the issue's ragged shape, at phase 4's request shape (both split
-    S over blocks) and at a shape whose tiles fill the card unsplit."""
-    from gsearch_tpu_torch.ops.distance import hamming_frac, hamming_frac_plain
+    """K1 at full width, each form bitwise against its plain version: every
+    tile forced at the flat index's Q x N (all split S there), the plan's
+    own choice there and at phase 4's request shape (8 x 48, split), an
+    unsplit large shape, and the self-pair form at the bulk build's pair
+    blocks [B, C, S'] (unsplit, wide tiles, mirrored)."""
+    from gsearch_tpu_torch.ops.distance import (K1_TILES, hamming_frac, hamming_frac_plain,
+                                                hamming_frac_self, hamming_frac_self_plain,
+                                                k1_plan)
 
     nq, n, s = cfg["k1"]
-    res = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    res = {"err": 0.0, "checked": []}
+
+    def hold(got, want, what):
+        if not same_bits(got, want):
+            raise AssertionError(f"K1 {what} differs from its plain version: max abs err "
+                                 f"{max_abs_err(got, want)}")
+        res["err"] = max(res["err"], max_abs_err(got, want))
+        res["checked"].append(what)
+
     for dtype in (torch.float32, torch.int32):
         db = torch.rand((n, s), generator=gen, device=dev)
         if dtype == torch.int32:
             db = (db * 4).to(torch.int32)
         src = torch.randint(0, n, (512,), generator=gen, device=dev)
         qs = perturbed(db[src], gen)
-        errs = []
-        for rows, cols in ((nq, n), (8, 48), (512, n)):
-            q, d = qs[:rows].contiguous(), db[:cols].contiguous()
-            got, want = hamming_frac(q, d), hamming_frac_plain(q, d)
-            if not same_bits(got, want):
-                raise AssertionError(f"K1 {dtype} at Q={rows} N={cols} differs from its plain "
-                                     f"version: max abs err {max_abs_err(got, want)}")
-            errs.append(max_abs_err(got, want))
-        res[str(dtype)] = max(errs)
+        q = qs[:nq].contiguous()
+        want = hamming_frac_plain(q, db)
+        for tile in (None, *K1_TILES):
+            plan = k1_plan(1, nq, n, s, sms, tile=tile)
+            hold(hamming_frac(q, db, tile=tile), want,
+                 f"{nq}x{n}x{s} {dtype} {plan.tile} x{plan.splits}{'' if tile else ' (plan)'}")
+        for rows, cols in ((8, 48), (512, n)):
+            qq, d = qs[:rows].contiguous(), db[:cols].contiguous()
+            plan = k1_plan(1, rows, cols, s, sms)
+            hold(hamming_frac(qq, d), hamming_frac_plain(qq, d),
+                 f"{rows}x{cols}x{s} {dtype} {plan.tile} x{plan.splits}")
         if dtype == torch.float32 and dev.type == "cuda":
-            q = qs[:nq].contiguous()
-            res["ms"] = event_ms(lambda: hamming_frac(q, db), 20)
-            res["plain_ms"] = event_ms(lambda: hamming_frac_plain(q, db), 3)
             small = (qs[:8].contiguous(), db[:48].contiguous())
-            res["ms_8x48"] = event_ms(lambda: hamming_frac(*small), 50)
-            res["plain_ms_8x48"] = event_ms(lambda: hamming_frac_plain(*small), 50)
-    # batched, at the bulk build's candidate pair blocks [B, C, S'] x [B, C, S']
+            qf, dbf = q.float(), db.float()
+            res.update(
+                ms=event_ms(lambda: hamming_frac(q, db), 20),
+                plain_ms=event_ms(lambda: hamming_frac_plain(q, db), 3),
+                library_ms=event_ms(lambda: torch.cdist(qf, dbf, p=0), 3),
+                ms_8x48=event_ms(lambda: hamming_frac(*small), 50),
+                plain_ms_8x48=event_ms(lambda: hamming_frac_plain(*small), 50),
+                library_ms_8x48=event_ms(lambda: torch.cdist(small[0], small[1], p=0), 50),
+                plan=k1_plan(1, nq, n, s, sms)._asdict(), plan_8x48=k1_plan(1, 8, 48, s, sms)._asdict(),
+                **k1_bound(1, nq, n, s, sms))
+            res["bound_ms_8x48"] = k1_bound(1, 8, 48, s, sms)["bound_ms"]
+            res["device_ms_8x48"] = device_ms(lambda: hamming_frac(*small), 50, "eqcount_kernel")
+            res["device_ms"] = device_ms(lambda: hamming_frac(q, db), 20, "eqcount_kernel")
+            for tile in K1_TILES:
+                res[f"ms_{tile}"] = event_ms(lambda: hamming_frac(q, db, tile=tile), 20)
+            q512 = qs[:512].contiguous()
+            res["ms_512"] = event_ms(lambda: hamming_frac(q512, db), 10)
+            res["bound_ms_512"] = k1_bound(1, 512, n, s, sms)["bound_ms"]
+            res["load_512"] = sm_clock_under(lambda: hamming_frac(q512, db), 400)
+        del db, qs, q, want
+    # the self-pair form at the bulk build's candidate pair blocks, with
+    # repeated candidates (a row may be every candidate list's member)
     b, c, sp = cfg["k1_batch"]
     rows = torch.randint(0, 3, (b, c, sp), generator=gen, device=dev, dtype=torch.int32)
-    got, want = hamming_frac(rows, rows), hamming_frac_plain(rows, rows)
-    if not same_bits(got, want):
-        raise AssertionError(f"batched K1 at {cfg['k1_batch']} differs from its plain version")
-    res["batched"] = max_abs_err(got, want)
+    rows[:, c // 2:] = rows[:, : c - c // 2].clone()
+    want = hamming_frac_self_plain(rows)
+    got = hamming_frac_self(rows)
+    hold(got, want, f"self pairs {cfg['k1_batch']} {k1_plan(b, c, c, sp, sms, pairs=True).tile}")
+    if not same_bits(got, got.transpose(1, 2).contiguous()) or bool(
+            (torch.diagonal(got, dim1=1, dim2=2) != 0).any()):
+        raise AssertionError("K1 self pairs: not symmetric, or the diagonal is not 0.0")
+    hold(hamming_frac(rows, rows), want, f"batched {cfg['k1_batch']} (both triangles)")
+    selfp = {"err": max_abs_err(got, want)}
     if dev.type == "cuda":
-        res["ms_batched"] = event_ms(lambda: hamming_frac(rows, rows), 10)
-        res["plain_ms_batched"] = event_ms(lambda: hamming_frac_plain(rows, rows), 2)
-    print(f"phase 2 K1 S={s} at Q x N = {nq} x {n}, 8 x 48 and 512 x {n}: f32 and int32 "
-          f"bitwise equal to the plain version; batched {cfg['k1_batch']} too")
+        rf = rows.float()
+        selfp.update(ms=event_ms(lambda: hamming_frac_self(rows), 10),
+                     plain_ms=event_ms(lambda: hamming_frac_self_plain(rows), 2),
+                     library_ms=event_ms(lambda: torch.cdist(rf, rf, p=0), 3),
+                     ms_both_triangles=event_ms(lambda: hamming_frac(rows, rows), 10),
+                     **k1_bound(b, c, c, sp, sms, pairs=True))
+    res["self"] = selfp
+    print(f"phase 2 K1 bitwise equal to the plain version: {'; '.join(res['checked'])}")
     return res
 
 
@@ -185,6 +308,7 @@ def phase_k2(dev, cfg, gen) -> dict:
     if dev.type == "cuda":
         res["ms"] = event_ms(lambda: gather_hamming(db, q, ids), 10)
         res["plain_ms"] = event_ms(lambda: gather_hamming_plain(db, q, ids), 2)
+        res.update(k2_bound(db, ids, torch.cuda.get_device_properties(dev).multi_processor_count))
     print(f"phase 3 K2 Qc={qc} R={r} N={n} S={s}: bitwise equal to the plain version")
     return res
 
@@ -221,6 +345,7 @@ def phase_k2_packed(dev, cfg, gen) -> dict:
             ent["ms"] = event_ms(lambda: gather_hamming(db, q, ids, parts=parts, s_true=s_true), 10)
             ent["plain_ms"] = event_ms(
                 lambda: gather_hamming_plain(db, q, ids, parts=parts, s_true=s_true), 2)
+            ent.update(k2_bound(db, ids, torch.cuda.get_device_properties(dev).multi_processor_count))
         res[parts] = ent
         del db, q, ids, got, want
         torch.cuda.empty_cache()
@@ -516,6 +641,58 @@ def _tie_aware(got_d: np.ndarray, true_d: np.ndarray) -> float:
     return float(1.0 - worse.mean())
 
 
+def coarse_k2_calls(dev, index, qn, k) -> list:
+    """One coarse-route request with K2's calls recorded: the prefix
+    rerank (MxuSearcher, four 256-query chunks) and the full tier's.
+    Each recorded call is then timed with the ids that request produced,
+    against its plain version and its unique-row bound.  These timing
+    launches are not main-path launches: the counts are restored."""
+    import gsearch_tpu_torch.index.hnsw as hnsw_mod
+    import gsearch_tpu_torch.ops.mxu as mxu_mod
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops.distance import gather_hamming, gather_hamming_plain
+
+    calls = []
+
+    def recorder(db, q, ids, **kw):
+        calls.append((db, q, ids, kw))
+        return gather_hamming(db, q, ids, **kw)
+
+    mods = (hnsw_mod, mxu_mod)
+    for mod in mods:
+        mod.gather_hamming = recorder
+    try:
+        index.search(qn, k)
+    finally:
+        for mod in mods:
+            mod.gather_hamming = gather_hamming
+    if index.stats["search"]["route"] != "coarse" or len(calls) < 2:
+        raise AssertionError(f"expected the coarse route's K2 calls, got {len(calls)}")
+    saved = dict(cuda_lib.launches)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    groups = {}
+    for call in calls:
+        db, _, ids, kw = call
+        groups.setdefault((tuple(ids.shape[1:]), db.shape[1], kw.get("parts", 1)), []).append(call)
+    out = []
+    for (r, lanes, parts), group in groups.items():
+        ent = {"launches": len(group), "qc": [int(c[2].shape[0]) for c in group], "r": r[0],
+               "lanes": lanes, "parts": parts, "n": int(group[0][0].shape[0]),
+               "ms": sum(event_ms(lambda c=c: gather_hamming(c[0], c[1], c[2], **c[3]), 10)
+                         for c in group),
+               "plain_ms": sum(event_ms(lambda c=c: gather_hamming_plain(c[0], c[1], c[2], **c[3]), 2)
+                               for c in group)}
+        bounds = [k2_bound(c[0], c[2], sms) for c in group]
+        ent.update(unique_rows=sum(b["unique_rows"] for b in bounds),
+                   bytes=sum(b["bytes"] for b in bounds), ops=sum(b["ops"] for b in bounds))
+        ent.update({k: v for k, v in bound(ent["bytes"], ent["ops"], sms).items()
+                    if k in ("bound_ms", "bound_by")})
+        out.append(ent)
+    cuda_lib.launches.update(saved)
+    del calls, groups
+    return out
+
+
 def phase_tiers(dev, cfg, pb, counts: dict) -> dict:
     """The graph index's routes and tiers against the exact oracle; the
     launches of the routes (not of the oracle) go into counts."""
@@ -553,6 +730,7 @@ def phase_tiers(dev, cfg, pb, counts: dict) -> dict:
     if st["tier"] != "full" or recall < 0.99:
         raise AssertionError(f"coarse route + full tier: recall@10 {recall} ({st})")
     res["coarse"] = {"recall": recall, "cold_s": times[0], "s": statistics.median(times[1:])}
+    res["coarse_k2"] = coarse_k2_calls(dev, index, qn, k)
 
     # per-row budgets (x next_pow2(n) + 1) in the middle of each packed
     # tier's range under the reference's rule (hnsw._rerank_tier): at
@@ -639,11 +817,16 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     request_counts = {k: v - build_counts[k] for k, v in cuda_lib.launches.items()}
     pa = timed("phase hnsw-add", phase_hnsw_add, dev, cfg, root, p4, pb)
     graph_counts = dict(cuda_lib.launches)
-    if build_counts["gather_hamming_p2"] == 0 or build_counts["hamming_frac"] == 0:
-        raise AssertionError(f"the bulk build did not go through K2 parts=2 and K1: {build_counts}")
+    if build_counts["gather_hamming_p2"] == 0 or build_counts["hamming_frac_self"] == 0:
+        raise AssertionError(f"the bulk build did not go through K2 parts=2 and K1's self pairs: "
+                             f"{build_counts}")
     if request_counts["gather_hamming"] == 0 or request_counts["int_mm"] == 0:
         raise AssertionError(f"the graph request did not go through K2 and the int8 matmul: "
                              f"{request_counts}")
+    add_counts = {k: v - build_counts[k] - request_counts[k] for k, v in graph_counts.items()}
+    if add_counts["hamming_frac_self"] == 0 or add_counts["hamming_frac"] == 0:
+        raise AssertionError(f"the beam-insert add did not go through K1 and its self pairs: "
+                             f"{add_counts}")
     print(f"main-path launches, graph index (hnsw-build to hnsw-add): {graph_counts}")
     tier_counts = {}
     tiers = timed("phase tiers", phase_tiers, dev, cfg, pb, tier_counts)
@@ -662,14 +845,33 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     print(f"  request {cfg['bench_queries']} queries x {cfg['n_total']} x {cfg['sketch']}, "
           f"k={cfg['knbn']}: {t['request_s'] * 1e3:.1f} ms, {t['qps']:.0f} qps")
     if dev.type == "cuda":
-        print(f"  K1 {cfg['k1']}: kernel {k1['ms']:.3f} ms, plain {k1['plain_ms']:.3f} ms; "
-              f"8x48 (phase 4): kernel {k1['ms_8x48']:.4f} ms, plain {k1['plain_ms_8x48']:.4f} ms")
-        print(f"  K1 batched {cfg['k1_batch']}: kernel {k1['ms_batched']:.3f} ms, "
-              f"plain {k1['plain_ms_batched']:.3f} ms")
-        print(f"  K2 {cfg['k2']}: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms")
+        print(f"  K1 {cfg['k1']} ({k1['plan']['tile']}, {k1['plan']['splits']} splits): kernel "
+              f"{k1['ms']:.4f} ms (wide {k1['ms_wide']:.4f}, narrow16 {k1['ms_narrow16']:.4f}, "
+              f"narrow8 {k1['ms_narrow8']:.4f}), plain {k1['plain_ms']:.3f} ms, cdist(p=0) "
+              f"{k1['library_ms']:.3f} ms, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}); "
+              f"device only (profiler) {k1['device_ms']} ms")
+        print(f"  K1 8x48 (phase 4's request; {k1['plan_8x48']['tile']}, {k1['plan_8x48']['splits']} "
+              f"splits): kernel {k1['ms_8x48']:.4f} ms (device only {k1['device_ms_8x48']} ms), "
+              f"plain {k1['plain_ms_8x48']:.4f} ms, cdist {k1['library_ms_8x48']:.4f} ms, bound "
+              f"{k1['bound_ms_8x48']:.5f} ms")
+        print(f"  K1 512 x {cfg['k1'][1]}: kernel {k1['ms_512']:.4f} ms, bound {k1['bound_ms_512']:.4f} ms; "
+              f"under 400 back-to-back launches the SM clock read {k1['load_512']['sm_clock_mhz']} MHz "
+              f"at {k1['load_512']['power_w']} W")
+        sp = k1["self"]
+        print(f"  K1 self pairs {cfg['k1_batch']}: kernel {sp['ms']:.4f} ms (both triangles "
+              f"{sp['ms_both_triangles']:.4f}), plain {sp['plain_ms']:.3f} ms, cdist "
+              f"{sp['library_ms']:.3f} ms, bound {sp['bound_ms']:.4f} ms ({sp['bound_by']})")
+        print(f"  K2 {cfg['k2']}: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, bound "
+              f"{k2['bound_ms']:.3f} ms ({k2['unique_rows']} unique rows)")
         for parts, ent in k2p.items():
             print(f"  K2 parts={parts} {cfg['k2p']} x {ent['lanes']} lanes: kernel {ent['ms']:.3f} ms, "
-                  f"plain {ent['plain_ms']:.3f} ms")
+                  f"plain {ent['plain_ms']:.3f} ms, bound {ent['bound_ms']:.3f} ms "
+                  f"({ent['unique_rows']} unique rows)")
+        for ent in tiers["coarse_k2"]:
+            print(f"  K2 coarse route, {ent['launches']} launch(es) Qc={ent['qc']} R={ent['r']} "
+                  f"lanes={ent['lanes']} N={ent['n']}: kernel {ent['ms']:.3f} ms, plain "
+                  f"{ent['plain_ms']:.3f} ms, bound {ent['bound_ms']:.3f} ms ({ent['bound_by']}, "
+                  f"{ent['unique_rows']} unique rows)")
     stages = ", ".join(f"{k} {v:.2f} s" for k, v in graph["stages"].items())
     print(f"  graph {cfg['hnsw_total']} x {cfg['sketch']}: bulk build {graph['build_s']:.1f} s "
           f"({stages}); dump {graph['dump_s']:.1f} s; CLI request of 8 genomes "
@@ -682,22 +884,30 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     print(f"  graph CLI: add of 8 genomes {pa['add_s']:.1f} s, request {pa['request_s']:.1f} s")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
     src = "gsearch_tpu_torch/csrc/hamming.cu"
+
+    def entry(name, replaces, err, ent, library_ms=None, **extra):
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": launches[name], "max_abs_err": err, "ms": ent.get("ms"),
+                "plain_ms": ent.get("plain_ms"), "bound_ms": ent.get("bound_ms"),
+                "bound_by": ent.get("bound_by"), "library_ms": library_ms, **extra}
+
+    k1_extra = {k: k1.get(k) for k in ("ms_wide", "ms_narrow16", "ms_narrow8", "ms_8x48",
+                                       "plain_ms_8x48", "library_ms_8x48", "bound_ms_8x48",
+                                       "device_ms", "device_ms_8x48", "ms_512", "bound_ms_512",
+                                       "load_512", "plan")}
     kernels = [
-        {"name": "hamming_frac", "route": "cuda", "source": src,
-         "replaces": "gsearch_tpu/ops/distance.py:69", "launches": launches["hamming_frac"],
-         "max_abs_err": max(k1[str(torch.float32)], k1[str(torch.int32)], k1["batched"]),
-         "ms": k1.get("ms"), "plain_ms": k1.get("plain_ms")},
-        {"name": "gather_hamming", "route": "cuda", "source": src,
-         "replaces": "gsearch_tpu/ops/distance.py:154", "launches": launches["gather_hamming"],
-         "max_abs_err": k2["err"], "ms": k2.get("ms"), "plain_ms": k2.get("plain_ms")},
+        entry("hamming_frac", "gsearch_tpu/ops/distance.py:69", k1["err"], k1, k1.get("library_ms"),
+              shape=list(cfg["k1"]), **k1_extra),
+        entry("hamming_frac_self", "gsearch_tpu/ops/distance.py:69", k1["self"]["err"], k1["self"],
+              k1["self"].get("library_ms"), shape=list(cfg["k1_batch"]),
+              ms_both_triangles=k1["self"].get("ms_both_triangles")),
+        entry("gather_hamming", "gsearch_tpu/ops/distance.py:154", k2["err"], k2,
+              shape=list(cfg["k2"]), coarse_route=tiers["coarse_k2"]),
     ]
     for parts, line in ((2, 201), (4, 207), (8, 217)):
         ent = k2p[parts]
-        kernels.append({"name": f"gather_hamming_p{parts}", "route": "cuda", "source": src,
-                        "replaces": f"gsearch_tpu/ops/distance.py:{line}",
-                        "launches": launches[f"gather_hamming_p{parts}"],
-                        "max_abs_err": ent["err"], "ms": ent.get("ms"),
-                        "plain_ms": ent.get("plain_ms")})
+        kernels.append(entry(f"gather_hamming_p{parts}", f"gsearch_tpu/ops/distance.py:{line}",
+                             ent["err"], ent, shape=[*cfg["k2p"], ent["lanes"]]))
     return {"kernels": kernels}
 
 
@@ -711,10 +921,16 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}")
     dev = torch.device("cuda", 0)
+    from gsearch_tpu_torch.io import native
+
     t0 = time.perf_counter()
     cuda_lib.load()
     print(f"phase 1 kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"({cuda_lib.library_path()})")
+    t0 = time.perf_counter()
+    native.build()  # raises when the FASTA parser does not build
+    print(f"phase 1 FASTA parser built in {time.perf_counter() - t0:.1f} s "
+          f"({native.library_path()}); parser in use: {native.parser()}")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         record = run(dev, FULL, root, card)
     print(json.dumps(record))

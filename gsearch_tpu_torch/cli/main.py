@@ -87,8 +87,7 @@ def main(argv=None) -> int:
         print(f"wrote {n} rows to {args.output_file}")
         return 0
 
-    from gsearch_tpu.core import ComputingParams, HnswParams, ProcessingParams, SeqSketcherParams
-
+    from ..core import ComputingParams, HnswParams, ProcessingParams, SeqSketcherParams
     from ..utils import resolve_device
 
     device = resolve_device(args.device)

@@ -28,7 +28,7 @@ construction passes and the same search routes:
   device), or for large fresh builds and appends the bulk path: an exact
   top-C sweep by a compact `MxuSearcher` (K2 `parts=2`), the select-
   neighbours heuristic on the device (`_bulk_keep`, pair distances through
-  batched K1) and one host-vectorised reverse merge.
+  K1's self-pair form) and one host-vectorised reverse merge.
 
 The numpy host helpers are copies of the reference's.  Rules that make the
 port deterministic where the reference leaves it to XLA:
@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..ops.distance import (as_int32_rows, bucketed_knn, gather_hamming, hamming_frac,
-                            sig_bits, topk_smallest)
+                            hamming_frac_self, sig_bits, topk_smallest)
 from ..ops.mxu import (MxuSearcher, _next_pow2, _round_up, pack_hash4, pack_hash8, pack_hash16,
                        planned_footprint)
 from ..utils import get_logger
@@ -318,18 +318,18 @@ def _insert_search(sigs_p, nbrs_p, entries, q_p, n, *, ef, C, hops, expand):
     beam_ids, beam_d = _beam(sigs_p, nbrs_p, entries, q_p, n, ef=ef, hops=hops,
                              expand=expand)
 
-    # ---- batch-mates as candidates: dense [B, B] prefix-distance block (K1)
-    d_m = hamming_frac(q_p, q_p)
+    # ---- batch-mates as candidates: dense [B, B] prefix-distance block (K1 self pairs)
+    d_m = hamming_frac_self(q_p)
     d_m.fill_diagonal_(torch.inf)
     mate_ids = n + torch.arange(B, dtype=torch.int32, device=q_p.device)
     all_ids = torch.cat([beam_ids, mate_ids.expand(B, B)], 1)
     cand_d, sel = topk_smallest(torch.cat([beam_d, d_m], 1), C)
     cand_ids = all_ids.gather(1, sel)
 
-    # ---- candidate pairwise block (batched K1) + select heuristic
+    # ---- candidate pairwise block (K1 self pairs, batched) + select heuristic
     finite = torch.isfinite(cand_d)
     cs = sigs_p[torch.where(finite, cand_ids, 0).long()]  # [B, C, S']
-    pair_d = hamming_frac(cs, cs)  # [B, C, C]
+    pair_d = hamming_frac_self(cs)  # [B, C, C]
     kept = torch.zeros((B, C), dtype=torch.bool, device=q_p.device)
     kept[:, 0] = finite[:, 0]
     for j in range(1, C):
@@ -385,9 +385,9 @@ def _bulk_keep(sigs_p, cand_ids, cand_d):
     build): keep candidate j iff it is closer to the query than to every
     already-kept candidate.  sigs_p [N, sp] int32; cand_ids [B, C] sorted
     ascending by cand_d (masked entries = inf).  Returns keep [B, C] bool.
-    The pair distances 1 - eq/sp come from batched K1."""
+    The pair distances 1 - eq/sp come from K1's self-pair form."""
     rows = sigs_p[cand_ids.long()]  # [B, C, sp]
-    pair_d = hamming_frac(rows, rows)  # [B, C(j), C(i)]
+    pair_d = hamming_frac_self(rows)  # [B, C(j), C(i)]
     closest = torch.full(cand_d.shape, torch.inf, device=cand_d.device)
     keeps = torch.empty(cand_d.shape, dtype=torch.bool, device=cand_d.device)
     for j in range(cand_d.shape[1]):
@@ -1194,9 +1194,10 @@ class HnswIndex:
         return idx
 
     @classmethod
-    def from_jax(cls, jax_index, device: torch.device = torch.device("cpu")) -> "HnswIndex":
-        """Carry a gsearch_tpu HnswIndex across: its signatures, graph,
-        cached link distances, entry tier, pins and parameters, as numpy."""
+    def from_jax(cls, jax_index, *, device: torch.device) -> "HnswIndex":
+        """Carry a gsearch_tpu HnswIndex across onto `device`: its
+        signatures, graph, cached link distances, entry tier, pins and
+        parameters, as numpy."""
         idx = cls(
             sketch_size=jax_index.sketch_size,
             sig_dtype=jax_index.sig_dtype,

@@ -2,7 +2,7 @@
 
 Counterpart of gsearch_tpu/index/serialize.py; the files are the same, so
 a database written by either package is requested by the other:
-    parameters.json, seqdict.json, processing_state.json  (gsearch_tpu.core)
+    parameters.json, seqdict.json, processing_state.json  (core/)
     index.meta.json    {kind, sig_dtype, nb_points, sketch_size, sig_file}
     index.sigs.npy     signature matrix [N, S]
     index.graph.npz    (hnsw only) nbrs, nbr_d, entry_ids, pinned
@@ -52,9 +52,9 @@ def load_index(dirpath: str, device: torch.device):
     return kinds[meta["kind"]].load_arrays(os.path.join(dirpath, INDEX_PREFIX), meta, device)
 
 
-def from_jax_database(dirpath: str, device: torch.device = torch.device("cpu")):
+def from_jax_database(dirpath: str, *, device: torch.device):
     """Load a database written by gsearch_tpu into the port's FlatIndex or
-    HnswIndex."""
+    HnswIndex on `device` (no default: the caller names the card or the CPU)."""
     return load_index(dirpath, device)
 
 

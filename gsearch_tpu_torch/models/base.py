@@ -31,9 +31,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from gsearch_tpu.core.params import DataType, SeqSketcherParams, SketchAlgo
-from gsearch_tpu.io.codec import PackedCodes
-
+from ..core.params import DataType, SeqSketcherParams, SketchAlgo
+from ..io.codec import PackedCodes
 from ..ops.kmer import canonical_dna_windows
 from ..ops.race import RaceResult, bucket_min_packed, combine_race
 
@@ -91,8 +90,8 @@ class SketcherBase:
     # longest contiguous row before a genome is cut into pieces
     MAX_BLOCK_LOG2 = _MAX_BLOCK_LOG2
 
-    def __init__(self, params: SeqSketcherParams, seed: int = 0x5EED,
-                 device: torch.device = torch.device("cpu")):
+    def __init__(self, params: SeqSketcherParams, seed: int = 0x5EED, *,
+                 device: torch.device):
         if params.data_t == DataType.AA:
             raise NotImplementedError(
                 "AA mode is not ported yet (ROADMAP.md: remaining sketchers and AA mode)")
@@ -204,9 +203,10 @@ class SketcherBase:
         return ticket.out
 
 
-def make_sketcher(params: SeqSketcherParams, seed: int = 0x5EED,
-                  device: torch.device = torch.device("cpu")) -> SketcherBase:
-    """Algorithm dispatch (the reference's models.make_sketcher)."""
+def make_sketcher(params: SeqSketcherParams, seed: int = 0x5EED, *,
+                  device: torch.device) -> SketcherBase:
+    """Algorithm dispatch (the reference's models.make_sketcher).  `device`
+    has no default: the caller names the card or the CPU."""
     from .optdens import OptDensSketcher, RevOptDensSketcher
 
     table = {SketchAlgo.OPTDENS: OptDensSketcher, SketchAlgo.REVOPTDENS: RevOptDensSketcher}

@@ -27,7 +27,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "gsearch_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-launches = {"hamming_frac": 0, "gather_hamming": 0, "gather_hamming_p2": 0,
+launches = {"hamming_frac": 0, "hamming_frac_self": 0, "gather_hamming": 0, "gather_hamming_p2": 0,
             "gather_hamming_p4": 0, "gather_hamming_p8": 0, "int_mm": 0}
 
 _lock = threading.Lock()
@@ -80,7 +80,7 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.gs_hamming_frac.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, vp]
+            lib.gs_hamming_frac.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
             lib.gs_hamming_frac.restype = i
             lib.gs_gather_hamming.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
             lib.gs_gather_hamming.restype = i
@@ -88,6 +88,15 @@ def load() -> ctypes.CDLL:
             lib.gs_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def current_stream(device) -> int:
+    """The handle of torch's current CUDA stream on `device`, for a launch.
+    The raw query: torch.cuda.current_stream() builds a Stream object, a
+    third of a small launch's host time."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -7,7 +7,10 @@ arithmetic) and distance = 1 - eq / S in f32, the formula of the reference's
 
 Two kernels, each a wrapper beside its plain torch version:
   - `hamming_frac` (K1): [Q, S] x [N, S] -> [Q, N], or a batch of such
-    problems [B, Q, S] x [B, N, S] -> [B, Q, N];
+    problems [B, Q, S] x [B, N, S] -> [B, Q, N]; `hamming_frac_self`, its
+    self-pair form x [B, C, S] against itself -> [B, C, C], computes only
+    the tiles on and above the diagonal.  `k1_plan` picks K1's tile and
+    S split from the shape;
   - `gather_hamming` (K2): distances of Qc queries to R database rows
     picked by id, [Qc, R], over rows of raw 32-bit slots (`parts=1`) or of
     packed 16-, 8- or 4-bit slot hashes (`parts=2, 4, 8`: the graph index's
@@ -23,6 +26,10 @@ keeps their semantics (rows past `n_valid` are +inf).
 
 from __future__ import annotations
 
+import functools
+import threading
+from typing import Iterator, NamedTuple, Tuple
+
 import numpy as np
 import torch
 
@@ -30,9 +37,6 @@ from . import cuda_lib
 
 # bound on the bool compare buffer of the plain versions (elements)
 _PLAIN_ELEMS = 1 << 26
-# K1's tile shape (csrc/hamming.cu) and the blocks per SM its split aims for
-_K1_TQ, _K1_TN, _K1_SK = 32, 64, 64
-_K1_BLOCKS_PER_SM = 4
 
 
 def _distance(eq: torch.Tensor, s: int) -> torch.Tensor:
@@ -91,6 +95,112 @@ def _cuda_args(*tensors: torch.Tensor, what: str) -> None:
 
 # ---- K1: all-pairs equal-count distance -------------------------------------
 
+#: K1's tiles, in the order of csrc/hamming.cu's `tile` argument: (queries,
+#: rows, blocks resident on an SM, which the tile's ring of shared memory
+#: sets: 64 KB, 102 KB and 99 KB of the SM's 227 KB).  The square wide tile
+#: serves large shapes and self pairs, the narrow ones request shapes.
+K1_TILES = {"wide": (64, 64, 3), "narrow16": (16, 256, 2), "narrow8": (8, 256, 2)}
+#: slots a shared-memory chunk holds; a split covers whole chunks
+K1_CHUNK = 32
+#: cost of staging one slot of one row, in slot compares
+K1_STAGE_COST = 8
+_GRID_X, _GRID_YZ = (1 << 31) - 1, 65535
+
+
+class K1Plan(NamedTuple):
+    """One K1 launch: the tile, how many output tiles there are along the
+    queries (`qtiles`) and in all (`tiles`, a batch member's), and the S
+    split (`span` slots a split, `splits` blocks a tile)."""
+    tile: str
+    qtiles: int
+    tiles: int
+    span: int
+    splits: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def k1_plan(batch: int, nq: int, n: int, s: int, sms: int, pairs: bool = False,
+            tile: str | None = None) -> K1Plan:
+    """K1's launch for a shape, a pure function of (batch, Q, N, S, the
+    card's SM count, self pairs).  For each tile and S split it estimates
+    the time as waves x chunks a block x the cost of a chunk (compares plus
+    K1_STAGE_COST x staged slots, times the blocks sharing an SM), where a
+    wave is SMs x resident blocks and a split block pays one chunk more
+    for its atomic epilogue; it takes the least (ties: the fewer splits).
+    Self pairs need the square wide tile.  `tile` forces a tile (tests)."""
+    if pairs and nq != n:
+        raise ValueError("self pairs need Q == N")
+    names = ["wide"] if pairs else list(K1_TILES)
+    if tile is not None:
+        if tile not in names:
+            raise ValueError(f"tile {tile!r} not among {names}")
+        names = [tile]
+    chunks = _cdiv(s, K1_CHUNK)
+    best = None
+    for name in names:
+        tq, tn, resident = K1_TILES[name]
+        qtiles, ntiles = _cdiv(nq, tq), _cdiv(n, tn)
+        tiles = ntiles * (ntiles + 1) // 2 if pairs else qtiles * ntiles
+        chunk_cost = (tq * tn + K1_STAGE_COST * (tq + tn)) * resident
+        wave = sms * resident
+        for splits in range(1, min(chunks, _GRID_YZ) + 1):
+            span_chunks = _cdiv(chunks, splits)
+            splits = _cdiv(chunks, span_chunks)
+            est = (_cdiv(batch * tiles * splits, wave) * (span_chunks + (splits > 1))
+                   * chunk_cost)
+            if best is None or est < best[0]:
+                best = (est, K1Plan(name, qtiles, tiles, span_chunks * K1_CHUNK, splits))
+    plan = best[1]
+    if plan.tiles > _GRID_X or batch > _GRID_YZ:
+        raise ValueError(f"hamming_frac: {batch} x {nq} x {n} needs a grid past the "
+                         f"card's limits ({plan})")
+    return plan
+
+
+def k1_tiles(plan: K1Plan, pairs: bool = False) -> Iterator[Tuple[int, int, bool]]:
+    """(first query, first row, mirrored) of each output tile of a batch
+    member, in blockIdx.x order: csrc/hamming.cu's enumeration."""
+    tq, tn, _ = K1_TILES[plan.tile]
+    for x in range(plan.tiles):
+        if pairs:
+            nt = int((np.sqrt(8.0 * x + 1.0) - 1.0) * 0.5)
+            while nt * (nt + 1) // 2 > x:
+                nt -= 1
+            while (nt + 1) * (nt + 2) // 2 <= x:
+                nt += 1
+            qt = x - nt * (nt + 1) // 2
+        else:
+            qt, nt = x % plan.qtiles, x // plan.qtiles
+        yield qt * tq, nt * tn, pairs and qt != nt
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# split workspace by (device, stream): int32 counts and tickets that the
+# kernel finds zero and leaves zero (csrc/hamming.cu); grown, never shrunk
+_workspace: dict = {}
+_workspace_lock = threading.Lock()
+
+
+def _k1_workspace(device: torch.device, stream: int, counts: int, tickets: int):
+    key = (device.index, stream)
+    with _workspace_lock:
+        have = _workspace.get(key)
+        if have is None or have[0].numel() < counts or have[1].numel() < tickets:
+            old = (0, 0) if have is None else (have[0].numel(), have[1].numel())
+            have = (torch.zeros(max(counts, old[0]), dtype=torch.int32, device=device),
+                    torch.zeros(max(tickets, old[1]), dtype=torch.int32, device=device))
+            _workspace[key] = have
+        return have
+
+
 def hamming_frac_plain(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     """Plain torch K1: [Q, S] x [N, S] -> [Q, N] f32 (batched: [B, Q, N])."""
     s = _check_rows(q, db)
@@ -106,33 +216,53 @@ def hamming_frac_plain(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     return _distance(eq, s)
 
 
-def hamming_frac(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
-    """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version for CPU ones."""
-    s = _check_rows(q, db)
-    if q.device.type == "cpu":
-        return hamming_frac_plain(q, db)
+def hamming_frac_self_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain torch self-pair K1: x [C, S] or [B, C, S] against itself ->
+    [C, C] or [B, C, C]; the diagonal is 1 - S/S = 0.0."""
+    return hamming_frac_plain(x, x)
+
+
+def _k1(q: torch.Tensor, db: torch.Tensor, pairs: bool, tile: str | None) -> torch.Tensor:
     _cuda_args(q, db, what="hamming_frac")
     qi, di = _as_i32(q, "hamming_frac"), _as_i32(db, "hamming_frac")
     batch = qi.shape[0] if qi.dim() == 3 else 1
-    nq, n = qi.shape[-2], di.shape[-2]
-    if nq > 65535 * 32 or batch > 65535:
-        raise ValueError("hamming_frac: too many queries or batch members for one launch")
+    nq, n, s = qi.shape[-2], di.shape[-2], qi.shape[-1]
     out = torch.empty(qi.shape[:-1] + (n,), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
-    # split S over enough blocks to give every SM a few when the 32 x 64
-    # output tiles alone are too few (see csrc/hamming.cu)
-    tiles = batch * -(-n // _K1_TN) * -(-nq // _K1_TQ)
-    want = _K1_BLOCKS_PER_SM * torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = max(1, min(-(-want // tiles), -(-s // _K1_SK), 65535 // batch))
-    counts = torch.zeros(out.shape, dtype=torch.int32, device=q.device) if splits > 1 else out
+    plan = k1_plan(batch, nq, n, s, _sm_count(q.device.index), pairs=pairs, tile=tile)
+    stream = cuda_lib.current_stream(q.device)
+    counts = tickets = 0
+    if plan.splits > 1:
+        ws = _k1_workspace(q.device, stream, batch * nq * n, batch * plan.tiles)
+        counts, tickets = ws[0].data_ptr(), ws[1].data_ptr()
     lib = cuda_lib.load()
     rc = lib.gs_hamming_frac(
-        qi.data_ptr(), di.data_ptr(), out.data_ptr(), counts.data_ptr(), batch, nq, n, s, splits,
-        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+        qi.data_ptr(), di.data_ptr(), out.data_ptr(), counts, tickets, batch, nq, n, s,
+        list(K1_TILES).index(plan.tile), plan.span, int(pairs), q.device.index, stream)
     cuda_lib.check(lib, rc, "gs_hamming_frac")
-    cuda_lib.launches["hamming_frac"] += 1
+    cuda_lib.launches["hamming_frac_self" if pairs else "hamming_frac"] += 1
     return out
+
+
+def hamming_frac(q: torch.Tensor, db: torch.Tensor, *, tile: str | None = None) -> torch.Tensor:
+    """K1 wrapper: the CUDA kernel for CUDA tensors, the plain version for
+    CPU ones.  `tile` forces one of K1_TILES (tests; default: k1_plan's)."""
+    _check_rows(q, db)
+    if q.device.type == "cpu":
+        return hamming_frac_plain(q, db)
+    return _k1(q, db, False, tile)
+
+
+def hamming_frac_self(x: torch.Tensor) -> torch.Tensor:
+    """Self-pair K1 wrapper: x [C, S] or [B, C, S] against itself, only the
+    tiles on and above the diagonal computed (the kernel mirrors them).
+    The CUDA kernel for a CUDA tensor, the plain version for a CPU one;
+    launches count under hamming_frac_self."""
+    _check_rows(x, x)
+    if x.device.type == "cpu":
+        return hamming_frac_self_plain(x)
+    return _k1(x, x, True, None)
 
 
 # ---- K2: distances to candidate rows picked by id ----------------------------
@@ -210,8 +340,7 @@ def gather_hamming(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor, *,
     lib = cuda_lib.load()
     rc = lib.gs_gather_hamming(
         di.data_ptr(), qi.data_ptr(), ids.data_ptr(), out.data_ptr(), di.shape[0], di.shape[1],
-        s_true, parts, ids.shape[0], ids.shape[1], q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        s_true, parts, ids.shape[0], ids.shape[1], q.device.index, cuda_lib.current_stream(q.device))
     cuda_lib.check(lib, rc, "gs_gather_hamming")
     cuda_lib.launches[_PARTS[parts]] += 1
     return out

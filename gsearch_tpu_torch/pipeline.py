@@ -19,17 +19,14 @@ from typing import List
 import numpy as np
 import torch
 
-from gsearch_tpu.core import ComputingParams, ProcessingParams, ProcessingState, SeqDict
-from gsearch_tpu.core.seqdict import Id, ItemDict
-from gsearch_tpu.io.fasta import concat_file_codes_packed, file_records_codes
-from gsearch_tpu.io.walk import iter_file_buffers, walk_fasta_dir
-from gsearch_tpu.results.answer import Neighbour, ReqAnswer
-from gsearch_tpu.results.matcher import Matcher
-
+from .core import ComputingParams, Id, ItemDict, ProcessingParams, ProcessingState, SeqDict
 from .index.flat import FlatIndex
 from .index.hnsw import HnswIndex
 from .index.serialize import dumpall, get_index_kind, load_index
+from .io.fasta import concat_file_codes_packed, file_records_codes, read_file_bytes
+from .io.walk import bounded_thread_map, iter_file_buffers, walk_fasta_dir
 from .models import make_sketcher
+from .results import Matcher, Neighbour, ReqAnswer
 from .utils import StageTimer, get_logger
 
 log = get_logger(__name__)
@@ -64,8 +61,6 @@ def _iter_parsed(paths, is_aa: bool, block_flag: bool, computing: ComputingParam
         path, data = args
         with timer.stage("parse"):
             if data is None:
-                from gsearch_tpu.io.fasta import read_file_bytes
-
                 data = read_file_bytes(path)
             if block_flag:
                 # DNA block mode parses into PackedCodes (fused native parser)
@@ -83,8 +78,6 @@ def _iter_parsed(paths, is_aa: bool, block_flag: bool, computing: ComputingParam
     if nb_threads == 0:
         nb_threads = max(1, min(8, os.cpu_count() or 1))
     if nb_threads > 1:
-        from gsearch_tpu.io.walk import bounded_thread_map
-
         yield from bounded_thread_map(parse_one, ((p, None) for p in paths), nb_threads)
     else:
         for _rank, path, data in iter_file_buffers(paths, computing.nb_files_par):

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from gsearch_tpu.core.params import SeqSketcherParams
+from gsearch_tpu_torch.core.params import SeqSketcherParams
 from gsearch_tpu_torch.index.hnsw import HnswIndex
 from gsearch_tpu_torch.models import make_sketcher
 from gsearch_tpu_torch.ops import cuda_lib
@@ -27,30 +27,72 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("tile", list(tdist.K1_TILES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
-def test_k1_kernel_matches_plain(cuda_device, dtype):
+def test_k1_kernel_matches_plain(cuda_device, dtype, tile):
+    """Each tile, bitwise: one tile, ragged everything (S % 4 != 0 takes
+    4-byte copies), split S, unsplit large Q x N."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
-    # unsplit (large Q x N), split S, one tile, ragged everything
-    for nq, n, s in ((1, 1, 1), (37, 130, 77), (70, 4095, 1203), (600, 3000, 333)):
+    for nq, n, s in ((1, 1, 1), (37, 130, 77), (70, 4095, 1203), (600, 3000, 333), (9, 300, 1024)):
         db = (torch.rand((n, s), generator=gen, device=cuda_device) * 3).to(dtype)
         q = (torch.rand((nq, s), generator=gen, device=cuda_device) * 3).to(dtype)
         before = cuda_lib.launches["hamming_frac"]
-        got = tdist.hamming_frac(q, db)
+        got = tdist.hamming_frac(q, db, tile=tile)
         assert cuda_lib.launches["hamming_frac"] == before + 1
-        assert torch.equal(got.view(torch.int32), tdist.hamming_frac_plain(q, db).view(torch.int32))
+        assert _same(got, tdist.hamming_frac_plain(q, db))
+
+
+def test_k1_split_matches_plain_and_leaves_workspace_zero(cuda_device):
+    """Shapes whose tiles cannot fill the card split S in one launch; the
+    split workspace is zero again afterwards, so a second call agrees."""
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for nq, n, s in ((8, 48, 12000), (37, 4095, 12000), (5, 40, 3001), (1, 700, 2048)):
+        plan = tdist.k1_plan(1, nq, n, s, sms)
+        assert plan.splits > 1, plan
+        db = (torch.rand((n, s), generator=gen, device=cuda_device) * 3).to(torch.int32)
+        q = (torch.rand((nq, s), generator=gen, device=cuda_device) * 3).to(torch.int32)
+        want = tdist.hamming_frac_plain(q, db)
+        assert _same(tdist.hamming_frac(q, db), want)
+        assert _same(tdist.hamming_frac(q, db), want)
+    for counts, tickets in tdist._workspace.values():
+        assert int(counts.abs().sum()) == 0 and int(tickets.abs().sum()) == 0
 
 
 def test_k1_batched_kernel_matches_plain(cuda_device):
-    """The graph index's candidate pair blocks: [B, C, S'] x [B, C, S']."""
+    """A batch of independent problems [B, Q, S] x [B, N, S]."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
-    for b, c, s in ((1, 3, 5), (37, 96, 128), (300, 64, 1024)):
-        rows = (torch.rand((b, c, s), generator=gen, device=cuda_device) * 3).to(torch.int32)
+    for b, c, n, s in ((1, 3, 4, 5), (37, 96, 50, 128), (300, 64, 64, 1024)):
+        q = (torch.rand((b, c, s), generator=gen, device=cuda_device) * 3).to(torch.int32)
+        db = (torch.rand((b, n, s), generator=gen, device=cuda_device) * 3).to(torch.int32)
         before = cuda_lib.launches["hamming_frac"]
-        got = tdist.hamming_frac(rows, rows)
+        got = tdist.hamming_frac(q, db)
         assert cuda_lib.launches["hamming_frac"] == before + 1
-        want = tdist.hamming_frac_plain(rows, rows)
-        assert got.shape == (b, c, c)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert got.shape == (b, c, n)
+        assert _same(got, tdist.hamming_frac_plain(q, db))
+
+
+def test_k1_self_pairs_match_plain(cuda_device):
+    """The self-pair form (tiles on and above the diagonal, mirrored) at
+    odd shapes with repeated rows, split and unsplit: bitwise equal to the
+    plain version, symmetric, 0.0 on the diagonal."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    for b, c, s in ((1, 1, 5), (3, 5, 77), (7, 33, 1024), (2, 130, 1203), (300, 64, 1024),
+                    (1, 1024, 256), (64, 128, 1024)):
+        x = (torch.rand((b, c, s), generator=gen, device=cuda_device) * 3).to(torch.int32)
+        x[:, c // 2:] = x[:, : c - c // 2].clone()  # repeated rows
+        before = cuda_lib.launches["hamming_frac_self"]
+        got = tdist.hamming_frac_self(x)
+        assert cuda_lib.launches["hamming_frac_self"] == before + 1
+        assert _same(got, tdist.hamming_frac_self_plain(x))
+        assert _same(got, got.transpose(1, 2).contiguous())
+        assert bool((torch.diagonal(got, dim1=1, dim2=2) == 0).all())
+    x2 = torch.rand((130, 300), generator=gen, device=cuda_device)  # 2-D f32
+    assert _same(tdist.hamming_frac_self(x2), tdist.hamming_frac_self_plain(x2))
 
 
 _PACKERS = {2: tmxu.pack_hash16, 4: tmxu.pack_hash8, 8: tmxu.pack_hash4}

@@ -131,3 +131,79 @@ def test_wrappers_reject_what_kernels_do_not_take():
         tdist.hamming_frac(f, torch.zeros((2, 9)))
     with pytest.raises(ValueError):
         tdist.gather_hamming(f, f, torch.zeros((3, 4), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("c", [1, 5, 33, 130])
+def test_hamming_frac_self_vs_plain_and_reference(rng, c):
+    """The self-pair form on [B, C, S] with repeated rows, S not a multiple
+    of 64: equal to hamming_frac_plain(x, x) bit for bit, counts bit-exact
+    against the reference's XLA path (within 2^-23 in distance), and
+    against its Pallas kernel in interpret mode for the small shapes."""
+    b, s = 3, 77
+    x = _sigs(rng, (b, c, s), np.float32)
+    x[:, c // 2:] = x[:, : c - c // 2]  # repeated rows
+    before = dict(cuda_lib.launches)
+    got = tdist.hamming_frac_self(torch.from_numpy(x)).numpy()
+    assert cuda_lib.launches == before  # a CPU tensor takes the plain version
+    assert got.shape == (b, c, c)
+    want = tdist.hamming_frac_plain(torch.from_numpy(x), torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert (np.diagonal(got, axis1=1, axis2=2) == 0).all()
+    for m in range(b):
+        xm = jnp.asarray(x[m])
+        _assert_distances(got[m], jdist.hamming_frac_xla(xm, xm), s)
+        if c <= 33:
+            pal = jdist.hamming_frac_pallas(xm, xm, tq=8, tn=16, sb=128, inner=64, interpret=True)
+            _assert_distances(got[m], pal, s)
+    # the 2-D form is the batch of one
+    np.testing.assert_array_equal(_bits(tdist.hamming_frac_self(torch.from_numpy(x[0])).numpy()),
+                                  _bits(got[0]))
+
+
+# the issue's three shapes (flat index below MXU_MIN_POINTS, the flat-48
+# request, the bulk build's pair blocks) and ragged ones; several SM counts
+_PLAN_SHAPES = [(1, 37, 4095, 12000, False), (1, 8, 48, 12000, False), (1024, 128, 128, 1024, True),
+                (1, 1, 1, 1, False), (3, 70, 4095, 1203, False), (2, 600, 3000, 333, False),
+                (5, 130, 130, 1203, True), (1, 1024, 1024, 1024, True), (1, 1, 700, 2048, False),
+                (7, 33, 33, 77, True), (1, 512, 4095, 12000, False)]
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("batch,nq,n,s,pairs", _PLAN_SHAPES)
+def test_k1_plan_covers_every_pair_once(batch, nq, n, s, pairs, sms):
+    """k1_plan's tiles cover every (query, row) pair of a member exactly
+    once, or once mirrored for self pairs (never below the diagonal
+    outside a diagonal tile); its splits cover S exactly once in whole
+    32-slot chunks; no grid dimension passes its limit."""
+    plans = [tdist.k1_plan(batch, nq, n, s, sms, pairs=pairs)]
+    if not pairs:
+        plans += [tdist.k1_plan(batch, nq, n, s, sms, tile=t) for t in tdist.K1_TILES]
+    for plan in plans:
+        tq, tn, _ = tdist.K1_TILES[plan.tile]
+        assert not pairs or (plan.tile == "wide" and tq == tn)
+        hits = np.zeros((nq, n), np.int32)
+        for q0, n0, mirror in tdist.k1_tiles(plan, pairs=pairs):
+            assert not pairs or q0 <= n0
+            hits[q0 : q0 + tq, n0 : n0 + tn] += 1
+            if mirror:
+                hits[n0 : n0 + tn, q0 : q0 + tq] += 1
+        np.testing.assert_array_equal(hits, 1, err_msg=str(plan))
+        assert plan.span % tdist.K1_CHUNK == 0 and plan.span > 0
+        assert (plan.splits - 1) * plan.span < s <= plan.splits * plan.span
+        assert plan.tiles <= (1 << 31) - 1 and plan.splits <= 65535 and batch <= 65535
+        assert plan.qtiles == -(-nq // tq)
+
+
+def test_k1_plan_shapes():
+    """The tile by shape on an H100 (132 SMs): narrow tiles for request
+    shapes, with S split where the tiles cannot fill the card; the wide
+    tile for the self pairs of the bulk build, unsplit."""
+    assert tdist.k1_plan(1, 8, 48, 12000, 132).tile == "narrow8"
+    assert tdist.k1_plan(1, 8, 48, 12000, 132).splits > 1
+    assert tdist.k1_plan(1, 37, 4095, 12000, 132).tile.startswith("narrow")
+    big = tdist.k1_plan(1024, 128, 128, 1024, 132, pairs=True)
+    assert big.tile == "wide" and big.splits == 1 and big.tiles == 3
+    with pytest.raises(ValueError):
+        tdist.k1_plan(1, 3, 4, 10, 132, pairs=True)
+    with pytest.raises(ValueError):
+        tdist.k1_plan(1, 3, 3, 10, 132, pairs=True, tile="narrow8")

@@ -79,7 +79,7 @@ def test_from_jax_database_searches_like_reference(recipe):
     from gsearch_tpu_torch.index import from_jax_database
 
     root, _ = recipe
-    idx = from_jax_database(str(root / "db_jax"))
+    idx = from_jax_database(str(root / "db_jax"), device=torch.device("cpu"))
     ref = jax_load(str(root / "db_jax"))
     sigs = ref.get_sigs()
     d, i = idx.search(sigs[[3, 0, 5]], 4)
@@ -231,8 +231,8 @@ def test_grown_database_with_placeholders(recipe, tmp_path, monkeypatch):
 
 def test_python_m_run_imports_no_jax(recipe, tmp_path):
     """A fresh interpreter running the port's CLI, with the flat and the
-    graph index, never imports jax, nor the JAX-bound parts of gsearch_tpu;
-    its neighbours files equal the reference's."""
+    graph index, imports neither jax nor any module of gsearch_tpu; its
+    neighbours files equal the reference's."""
     root, outs = recipe
     env = dict(os.environ, PYTHONPATH=REPO)
     cmds = []
@@ -249,8 +249,9 @@ def test_python_m_run_imports_no_jax(recipe, tmp_path):
                    if line.startswith("import time:")}
         assert "gsearch_tpu_torch.pipeline" in modules
         assert "gsearch_tpu_torch.index.hnsw" in modules
-        banned = [m for m in modules if m == "jax" or m.startswith("jax.") or m in (
-            "gsearch_tpu.utils", "gsearch_tpu.index", "gsearch_tpu.models")]
+        assert "gsearch_tpu_torch.io.native" in modules
+        banned = [m for m in modules if m in ("jax", "gsearch_tpu")
+                  or m.startswith(("jax.", "gsearch_tpu."))]
         assert not banned, banned
     assert '"kind": "hnsw"' in (tmp_path / "db_hnsw" / "index.meta.json").read_text()
     ref = root / outs[("jax", "db_jax")] / "gsearch.neighbors.txt"

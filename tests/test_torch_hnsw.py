@@ -227,7 +227,7 @@ def test_small_add_beam_insert_matches_reference(beam_graphs, rng):
     ref = jhnsw.HnswIndex.__new__(jhnsw.HnswIndex)
     ref.__dict__.update({k: (v.copy() if isinstance(v, np.ndarray) else v)
                          for k, v in ref0.__dict__.items()})
-    got = thnsw.HnswIndex.from_jax(ref0)
+    got = thnsw.HnswIndex.from_jax(ref0, device=CPU)
     extra = sig_cloud(rng, 40, 128, n_clusters=3)
     ref.insert(extra, bulk=False)
     got.insert(extra, bulk=False)

@@ -34,7 +34,7 @@ def carried():
     ref = jhnsw.HnswIndex(sketch_size=S_TIERS, sig_dtype=np.uint32, max_nb_conn=16,
                           ef_construction=64, search_prefix=1024)
     ref.insert(sigs[:n], bulk=False)
-    return ref, thnsw.HnswIndex.from_jax(ref), sigs[n:]
+    return ref, thnsw.HnswIndex.from_jax(ref, device=CPU), sigs[n:]
 
 
 @pytest.mark.parametrize("tier", ["full", "packed", "packed8", "packed4"])

@@ -1,0 +1,64 @@
+"""gsearch_tpu_torch stands alone: no module of the port, and not
+chip_smoke.py, imports jax or any module of gsearch_tpu (read from the
+source, so an import inside a function counts too); and its entry points
+take no default device, so a caller who names none is told so instead of
+running on the CPU."""
+
+import ast
+import glob
+import os
+
+import numpy as np
+import pytest
+
+from gsearch_tpu_torch.core.params import SeqSketcherParams
+from gsearch_tpu_torch.index import FlatIndex, HnswIndex, from_jax_database
+from gsearch_tpu_torch.models import make_sketcher
+from gsearch_tpu_torch.models.optdens import OptDensSketcher
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = sorted(glob.glob(os.path.join(REPO, "gsearch_tpu_torch", "**", "*.py"), recursive=True))
+SOURCES.append(os.path.join(REPO, "chip_smoke.py"))
+
+
+def _banned(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "gsearch_tpu")
+
+
+def test_sources_found():
+    assert len(SOURCES) > 30
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_import(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found += [a.name for a in node.names if _banned(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            if _banned(node.module):
+                found.append(node.module)
+        elif (isinstance(node, ast.Call) and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant) and isinstance(node.args[0].value, str)
+              and _banned(node.args[0].value)):
+            found.append(node.args[0].value)
+    assert not found, found
+
+
+def test_entry_points_require_a_device(tmp_path):
+    params = SeqSketcherParams(kmer_size=16, sketch_size=64, algo="OPTDENS", data_t="DNA")
+    with pytest.raises(TypeError, match="device"):
+        make_sketcher(params)
+    with pytest.raises(TypeError, match="device"):
+        OptDensSketcher(params)
+    with pytest.raises(TypeError, match="device"):
+        HnswIndex(sketch_size=64, sig_dtype=np.float32)
+    with pytest.raises(TypeError, match="device"):
+        FlatIndex(64, np.float32)
+    with pytest.raises(TypeError, match="device"):
+        from_jax_database(str(tmp_path))
+    with pytest.raises(TypeError, match="device"):
+        HnswIndex.from_jax(object())

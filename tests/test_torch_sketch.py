@@ -7,12 +7,21 @@ default wherever its native packer loads), the form the port follows."""
 
 import numpy as np
 import pytest
+import torch
 
-from gsearch_tpu.core.params import SeqSketcherParams
-from gsearch_tpu.io.codec import PackedCodes
+from gsearch_tpu.core.params import SeqSketcherParams as JaxParams
+from gsearch_tpu.io.codec import PackedCodes as JaxPackedCodes
 from gsearch_tpu.models import make_sketcher as jax_sketcher
-from gsearch_tpu_torch.models import make_sketcher as torch_sketcher
+from gsearch_tpu_torch.core.params import SeqSketcherParams
+from gsearch_tpu_torch.io.codec import PackedCodes
+from gsearch_tpu_torch.models import make_sketcher
 from gsearch_tpu_torch.models.base import block_length
+
+CPU = torch.device("cpu")
+
+
+def torch_sketcher(params):
+    return make_sketcher(params, device=CPU)
 
 
 def _packed(codes: np.ndarray) -> PackedCodes:
@@ -24,6 +33,12 @@ def _packed(codes: np.ndarray) -> PackedCodes:
     return PackedCodes(p2, n, np.nonzero(~valid)[0].astype(np.int32))
 
 
+def _ref(genomes):
+    """The genomes as the reference's sketcher takes them: its own
+    PackedCodes class in place of the port's."""
+    return [JaxPackedCodes(g.p2, g.n, g.inv) if isinstance(g, PackedCodes) else g for g in genomes]
+
+
 def _with_n_runs(rng, n, runs, run_len, lo=0, hi=None):
     g = rng.integers(0, 4, size=n).astype(np.uint8)
     for st in rng.integers(lo, (hi or n) - run_len, runs):
@@ -32,8 +47,10 @@ def _with_n_runs(rng, n, runs, run_len, lo=0, hi=None):
 
 
 def _pair(algo, s, max_block_log2=None):
-    p = SeqSketcherParams(kmer_size=16, sketch_size=s, algo=algo, data_t="DNA")
-    j, t = jax_sketcher(p), torch_sketcher(p)
+    """The reference's and the port's sketcher, each built from its own
+    package's parameters."""
+    kw = dict(kmer_size=16, sketch_size=s, algo=algo, data_t="DNA")
+    j, t = jax_sketcher(JaxParams(**kw)), torch_sketcher(SeqSketcherParams(**kw))
     j._upload_raw = False
     if max_block_log2 is not None:
         j.MAX_BLOCK_LOG2 = t.MAX_BLOCK_LOG2 = max_block_log2
@@ -64,15 +81,15 @@ def test_sketch_many_multiblock_bit_exact(rng, algo, s):
     names = list(genomes)
     j, t = _pair(algo, s, max_block_log2=14)
     codes = list(genomes.values())
-    _assert_rows_equal(j.sketch_many(codes), t.sketch_many(codes), names)
+    _assert_rows_equal(j.sketch_many(_ref(codes)), t.sketch_many(codes), names)
     packed = [_packed(c) for c in codes]
-    _assert_rows_equal(j.sketch_many(packed), t.sketch_many(packed), names)
+    _assert_rows_equal(j.sketch_many(_ref(packed)), t.sketch_many(packed), names)
     # an N-run-heavy short genome sends the reference's whole batch down its
     # bit-plane path, whose rows are padded with uninitialised bytes: only a
     # batch of one genome that fills its block exactly is deterministic there
     heavy = _with_n_runs(rng, 16_384, 25, 80)
     for g in (heavy, _packed(heavy)):
-        _assert_rows_equal(j.sketch_many([g]), t.sketch_many([g]), ["n-runs-full-block"])
+        _assert_rows_equal(j.sketch_many(_ref([g])), t.sketch_many([g]), ["n-runs-full-block"])
 
 
 def test_sketch_codes_and_default_block_bit_exact(rng):
@@ -83,7 +100,7 @@ def test_sketch_codes_and_default_block_bit_exact(rng):
     assert block_length(len(one)) == 24_576
     j, t = _pair("OPTDENS", 512)
     for name, g in (("midpoint-bucket", one), ("n-runs-padded", heavy)):
-        np.testing.assert_array_equal(j.sketch_codes(g).view(np.uint32),
+        np.testing.assert_array_equal(j.sketch_codes(_ref([g])[0]).view(np.uint32),
                                       t.sketch_codes(g).view(np.uint32), err_msg=name)
 
 
@@ -98,9 +115,9 @@ def test_n_heavy_long_genome_takes_per_piece_buckets(rng):
     assert [nb for _, nb in t._pieces(heavy)] == [32_768, 16_384]
     assert [nb for _, nb in t._pieces(_packed(heavy))] == [32_768, 16_384]
     genomes = [clean, heavy]
-    _assert_rows_equal(j.sketch_many(genomes), t.sketch_many(genomes), ["clean", "heavy"])
+    _assert_rows_equal(j.sketch_many(_ref(genomes)), t.sketch_many(genomes), ["clean", "heavy"])
     packed = [_packed(g) for g in genomes]
-    _assert_rows_equal(j.sketch_many(packed), t.sketch_many(packed), ["clean", "heavy"])
+    _assert_rows_equal(j.sketch_many(_ref(packed)), t.sketch_many(packed), ["clean", "heavy"])
 
 
 def test_submit_finish_tickets_independent(rng):
