@@ -14,7 +14,9 @@ CUDA card it exits non-zero before printing any result.
      [1024, 128, 1024] (symmetric, 0.0 on the diagonal); each timed against
      its plain version, `torch.cdist(p=0)` and its bound;
   3. K2 (`gather_hamming`) against its plain version at Qc=1024, R=80,
-     N=65536, S=12000 with repeated and out-of-range ids: bitwise equal;
+     N=65536, S=12000 with synthetic ids (each repeated inside its query,
+     some out of range): both forms (query-major, row-grouped) bitwise
+     equal, each timed, and the plan's (`k2_plan`);
   4. the CLI slice in-process: a seeded corpus of 48 genomes (1.5-6 Mb,
      8 clusters, some past the 4 Mb block so the piece path runs, some
      with N runs) and 8 queries (1%-mutated members) through
@@ -22,20 +24,23 @@ CUDA card it exits non-zero before printing any result.
      `reformat 16 1`: each query's best hit is its source at ANI 99 +- 0.5;
   5. the same request against that database grown to 65,536 genomes with
      seeded uniform decoy signatures: the neighbours file is byte-identical;
+     its K2 call is recorded (a K2 site, below);
      then, with that database's sketcher, signatures on the card equal the
      CPU path's on a small input;
   6. timings beside the card's name: sketch Mbases/s, request qps at
-     65,536 x 12,000 (1,024 queries, k = 10), each kernel against its plain
-     version, its library call (K1) and its bound;
+     65,536 x 12,000 (1,024 queries, k = 10; its K2 call recorded), each
+     kernel against its plain version, its library call (K1) and its
+     bound;
   K2-packed. K2 parts=2/4/8 against its plain version, bitwise, at the
      graph index's tier shapes: Qc=1024, R=160, N=262,144, 6,144 / 3,072 /
      2,048 lanes (12,000 slots as 16-, 8- and 4-bit hashes), with repeated
-     and out-of-range ids; each timed against its plain version;
+     and out-of-range ids; both forms bitwise equal, each timed;
   hnsw-build. phase 4's 48 genomes plus seeded clustered decoy signatures
      (256 families x 16 species x a random tree of 64 members, drawn on the
      card) up to
      262,144 x 12,000, built by `HnswIndex.insert` (the bulk path) and
-     dumped as an hnsw database; the build's passes timed;
+     dumped as an hnsw database; the build's passes timed; pass A's first
+     K2 call recorded;
   hnsw-request. CLI `request -n 10` of phase 4's queries against it: the
      neighbours file is byte-identical to phase 4's (decoys lie above the
      0.99 output threshold);
@@ -46,10 +51,15 @@ CUDA card it exits non-zero before printing any result.
      with the full tier and the beam route reach tie-aware recall@10 >= 0.99;
      the packed, packed8 and packed4 tiers, forced by lowering
      `_RERANK_DEVICE_BYTES`, overlap the full tier's ids by >= 0.95, 0.9 and
-     0.9; each route timed as a request of 1,024 queries; K2's launches of
-     one coarse-route request (the prefix rerank's four 256-query chunks and
-     the full tier) timed with the ids that request produced, against the
-     bound of the unique rows they reference.
+     0.9; each route timed as a request of 1,024 queries; K2's calls of one
+     more request by each route recorded: the coarse prefix rerank (one
+     launch over the batch), the full, packed, packed8 and packed4 tiers,
+     and the first hop of the beam.
+  K2 sites.  Each recorded call is re-run with its own arguments: every
+     form bitwise against the plain version, timed under each form, the
+     plan's and the plain version (CUDA events; device-only time from
+     torch.profiler), beside the bound of the unique rows it references and
+     the number of such launches on the main path.
 The launch counters are zeroed just before each main-path run and read just
 after it: phases 4-5 (K1 in phase 4, K2 and the int8 matmul in phase 5);
 hnsw-build to hnsw-add (K2 parts=2 and K1's self pairs in the bulk build,
@@ -289,7 +299,10 @@ def phase_k1(dev, cfg, gen) -> dict:
 
 
 def phase_k2(dev, cfg, gen) -> dict:
-    from gsearch_tpu_torch.ops.distance import gather_hamming, gather_hamming_plain
+    """K2 parts=1 at the flat index's width, each form bitwise against the
+    plain version, with synthetic ids: every id repeated inside its query,
+    out-of-range ids."""
+    from gsearch_tpu_torch.ops.distance import K2_FORMS, gather_hamming, gather_hamming_plain, k2_plan
 
     qc, r, n, s = cfg["k2"]
     db = torch.rand((n, s), generator=gen, device=dev)
@@ -299,25 +312,32 @@ def phase_k2(dev, cfg, gen) -> dict:
     ids[:, 1] = src.to(torch.int32)          # each query's source row
     ids[:, r // 2:] = ids[:, : r - r // 2]   # every id repeated
     ids[0, 0], ids[1, 0], ids[2, 0] = -1, n, 2**31 - 1  # out of range -> +inf
-    got, want = gather_hamming(db, q, ids), gather_hamming_plain(db, q, ids)
-    if not same_bits(got, want):
-        raise AssertionError(f"K2 differs from its plain version: max abs err {max_abs_err(got, want)}")
-    if not bool(torch.isinf(got[:3, 0]).all()):
-        raise AssertionError("K2: out-of-range ids must give +inf")
-    res = {"err": max_abs_err(got, want)}
+    want = gather_hamming_plain(db, q, ids)
+    res = {"err": 0.0}
+    for form in K2_FORMS:
+        got = gather_hamming(db, q, ids, form=form)
+        if not same_bits(got, want):
+            raise AssertionError(f"K2 {form} differs from its plain version: max abs err "
+                                 f"{max_abs_err(got, want)}")
+        if not bool(torch.isinf(got[:3, 0]).all()):
+            raise AssertionError("K2: out-of-range ids must give +inf")
     if dev.type == "cuda":
+        for form in K2_FORMS:
+            res[f"ms_{form}"] = event_ms(lambda: gather_hamming(db, q, ids, form=form), 10)
         res["ms"] = event_ms(lambda: gather_hamming(db, q, ids), 10)
         res["plain_ms"] = event_ms(lambda: gather_hamming_plain(db, q, ids), 2)
-        res.update(k2_bound(db, ids, torch.cuda.get_device_properties(dev).multi_processor_count))
-    print(f"phase 3 K2 Qc={qc} R={r} N={n} S={s}: bitwise equal to the plain version")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        res.update(k2_bound(db, ids, sms), form=k2_plan(qc, r, n, s, sms).form)
+    print(f"phase 3 K2 Qc={qc} R={r} N={n} S={s}: both forms bitwise equal to the plain version")
     return res
 
 
 def phase_k2_packed(dev, cfg, gen) -> dict:
     """K2 parts=2/4/8 at the tier shapes.  Lanes of random bits; each query
     is a database row with a fraction of its lanes XORed with random bits,
-    so equal-field counts spread over the whole range."""
-    from gsearch_tpu_torch.ops.distance import gather_hamming, gather_hamming_plain
+    so equal-field counts spread over the whole range.  Each form bitwise
+    against the plain version."""
+    from gsearch_tpu_torch.ops.distance import K2_FORMS, gather_hamming, gather_hamming_plain, k2_plan
 
     qc, r, n = cfg["k2p"]
     res = {}
@@ -333,19 +353,24 @@ def phase_k2_packed(dev, cfg, gen) -> dict:
         ids[:, 1] = src.to(torch.int32)
         ids[:, r // 2:] = ids[:, : r - r // 2]
         ids[0, 0], ids[1, 0], ids[2, 0] = -1, n, 2**31 - 1
-        got = gather_hamming(db, q, ids, parts=parts, s_true=s_true)
         want = gather_hamming_plain(db, q, ids, parts=parts, s_true=s_true)
-        if not same_bits(got, want):
-            raise AssertionError(f"K2 parts={parts} differs from its plain version: "
-                                 f"max abs err {max_abs_err(got, want)}")
-        if not bool(torch.isinf(got[:3, 0]).all()) or not bool((got[:, 1] < 1).all()):
-            raise AssertionError(f"K2 parts={parts}: out-of-range ids must give +inf, sources < 1")
-        ent = {"err": max_abs_err(got, want), "lanes": lanes}
+        for form in K2_FORMS:
+            got = gather_hamming(db, q, ids, parts=parts, s_true=s_true, form=form)
+            if not same_bits(got, want):
+                raise AssertionError(f"K2 parts={parts} {form} differs from its plain version: "
+                                     f"max abs err {max_abs_err(got, want)}")
+            if not bool(torch.isinf(got[:3, 0]).all()) or not bool((got[:, 1] < 1).all()):
+                raise AssertionError(f"K2 parts={parts}: out-of-range ids must give +inf, sources < 1")
+        ent = {"err": 0.0, "lanes": lanes}
         if dev.type == "cuda":
+            for form in K2_FORMS:
+                ent[f"ms_{form}"] = event_ms(
+                    lambda: gather_hamming(db, q, ids, parts=parts, s_true=s_true, form=form), 10)
             ent["ms"] = event_ms(lambda: gather_hamming(db, q, ids, parts=parts, s_true=s_true), 10)
             ent["plain_ms"] = event_ms(
                 lambda: gather_hamming_plain(db, q, ids, parts=parts, s_true=s_true), 2)
-            ent.update(k2_bound(db, ids, torch.cuda.get_device_properties(dev).multi_processor_count))
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            ent.update(k2_bound(db, ids, sms), form=k2_plan(qc, r, n, lanes, sms).form)
         res[parts] = ent
         del db, q, ids, got, want
         torch.cuda.empty_cache()
@@ -471,10 +496,15 @@ def phase_grown(dev, cfg, root, p4) -> dict:
     dump_with_placeholders(p4["db"], db, index)
     out = os.path.join(root, "req65k")
     t0 = time.perf_counter()
-    rc = main(["request", "-b", db, "-n", str(cfg["knbn"]), "-r", p4["q_dir"], "-o", out,
-               "--device", dev.type])
+    with K2Recorder(keep=1) as rec:
+        rc = main(["request", "-b", db, "-n", str(cfg["knbn"]), "-r", p4["q_dir"], "-o", out,
+                   "--device", dev.type])
     t_request = time.perf_counter() - t0
     assert rc == 0, "request at 65k failed"
+    if not rec.calls:
+        raise AssertionError("the request at 65k made no K2 call")
+    site = k2_site(dev, "flat-65k request", rec.calls[0], rec.count)
+    del rec
     with open(p4["neighbours"]) as a, open(os.path.join(out, "gsearch.neighbors.txt")) as b:
         want, got = a.read(), b.read()
     if got != want:
@@ -482,7 +512,7 @@ def phase_grown(dev, cfg, root, p4) -> dict:
             want.splitlines(True), got.splitlines(True), "48 genomes", f"{cfg['n_total']} genomes"))[:60])
         raise AssertionError(f"neighbours file at {cfg['n_total']} genomes differs from phase 4's:\n{diff}")
     print(f"phase 5 request at {cfg['n_total']} genomes: neighbours file byte-identical")
-    return {"db": db, "request_s": t_request}
+    return {"db": db, "request_s": t_request, "k2_site": site}
 
 
 def phase_timings(dev, cfg, p4, p5) -> dict:
@@ -515,8 +545,13 @@ def phase_timings(dev, cfg, p4, p5) -> dict:
         t0 = time.perf_counter()
         index.search(q, cfg["knbn"])
         qtimes.append(time.perf_counter() - t0)
+    with K2Recorder(keep=1) as rec:
+        index.search(q, cfg["knbn"])
+    site = k2_site(dev, f"flat-65k, {nq}-query batch", rec.calls[0], rec.count)
+    del rec
     return {"sketch_mbases_s": mbases / min(times), "sketch_s": min(times), "mbases": mbases,
-            "request_s": statistics.median(qtimes), "qps": nq / statistics.median(qtimes)}
+            "request_s": statistics.median(qtimes), "qps": nq / statistics.median(qtimes),
+            "k2_site": site}
 
 
 def make_decoys(dev, cfg, out: np.ndarray, gen) -> None:
@@ -566,7 +601,8 @@ def phase_hnsw_build(dev, cfg, root, p4) -> dict:
     t_gen = time.perf_counter() - t0
     index = empty_index_like(p4["db"], "hnsw", device=dev)
     t0 = time.perf_counter()
-    index.insert(sigs)  # the bulk build ends in a host sync
+    with K2Recorder(keep=1) as rec:  # pass A's launches, the first kept
+        index.insert(sigs)  # the bulk build ends in a host sync
     t_build = time.perf_counter() - t0
     if "build_s" not in index.stats or index.nb_points != cfg["hnsw_total"]:
         raise AssertionError("the graph build did not take the bulk path")
@@ -578,8 +614,12 @@ def phase_hnsw_build(dev, cfg, root, p4) -> dict:
     print(f"phase hnsw-build {cfg['hnsw_total']} x {s} (max_nb_conn {index.max_nb_conn}): decoys "
           f"{t_gen:.1f} s, bulk build {t_build:.1f} s ({stages}), dump {t_dump:.1f} s; "
           f"{len(index._pinned)} pinned, {len(index._entry_ids)} entries")
+    if not rec.calls or rec.calls[0][3].get("parts") != 2:
+        raise AssertionError("the bulk build's pass A made no K2 parts=2 call")
+    site = k2_site(dev, "pass A of the bulk build (the first)", rec.calls[0], rec.count)
+    del rec
     return {"index": index, "db": db, "gen_s": t_gen, "build_s": t_build, "dump_s": t_dump,
-            "stages": dict(index.stats["build_s"])}
+            "stages": dict(index.stats["build_s"]), "k2_site": site}
 
 
 def _cli_request(dev, cfg, db, q_dir, out) -> float:
@@ -641,56 +681,83 @@ def _tie_aware(got_d: np.ndarray, true_d: np.ndarray) -> float:
     return float(1.0 - worse.mean())
 
 
-def coarse_k2_calls(dev, index, qn, k) -> list:
-    """One coarse-route request with K2's calls recorded: the prefix
-    rerank (MxuSearcher, four 256-query chunks) and the full tier's.
-    Each recorded call is then timed with the ids that request produced,
-    against its plain version and its unique-row bound.  These timing
-    launches are not main-path launches: the counts are restored."""
-    import gsearch_tpu_torch.index.hnsw as hnsw_mod
-    import gsearch_tpu_torch.ops.mxu as mxu_mod
+class K2Recorder:
+    """While active, K2's calls made by the graph index and the searcher
+    (the flat index goes through the searcher) are recorded: the
+    arguments of the first `keep`, and the count of all of them."""
+
+    def __init__(self, keep: int):
+        self.keep, self.calls, self.count = keep, [], 0
+
+    def __enter__(self):
+        import gsearch_tpu_torch.index.hnsw as hnsw_mod
+        import gsearch_tpu_torch.ops.mxu as mxu_mod
+        from gsearch_tpu_torch.ops.distance import gather_hamming
+
+        self.mods, self.real = (hnsw_mod, mxu_mod), gather_hamming
+
+        def recorder(db, q, ids, **kw):
+            if len(self.calls) < self.keep:
+                self.calls.append((db, q, ids, kw))
+            self.count += 1
+            return gather_hamming(db, q, ids, **kw)
+
+        for mod in self.mods:
+            mod.gather_hamming = recorder
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self.mods:
+            mod.gather_hamming = self.real
+        return False
+
+
+def k2_site(dev, site: str, call, launches: int) -> dict:
+    """A K2 call the main path made, re-run with its own arguments: every
+    form bitwise against the plain version; timed under each forced form,
+    the plan's form and the plain version, beside its unique-row bound.
+    `launches` is how many launches of this kind the main path made.
+    These launches are not main-path launches: the counts are restored."""
     from gsearch_tpu_torch.ops import cuda_lib
-    from gsearch_tpu_torch.ops.distance import gather_hamming, gather_hamming_plain
+    from gsearch_tpu_torch.ops.distance import K2_FORMS, gather_hamming, gather_hamming_plain, k2_plan
 
-    calls = []
-
-    def recorder(db, q, ids, **kw):
-        calls.append((db, q, ids, kw))
-        return gather_hamming(db, q, ids, **kw)
-
-    mods = (hnsw_mod, mxu_mod)
-    for mod in mods:
-        mod.gather_hamming = recorder
-    try:
-        index.search(qn, k)
-    finally:
-        for mod in mods:
-            mod.gather_hamming = gather_hamming
-    if index.stats["search"]["route"] != "coarse" or len(calls) < 2:
-        raise AssertionError(f"expected the coarse route's K2 calls, got {len(calls)}")
+    db, q, ids, kw = call
     saved = dict(cuda_lib.launches)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    groups = {}
-    for call in calls:
-        db, _, ids, kw = call
-        groups.setdefault((tuple(ids.shape[1:]), db.shape[1], kw.get("parts", 1)), []).append(call)
-    out = []
-    for (r, lanes, parts), group in groups.items():
-        ent = {"launches": len(group), "qc": [int(c[2].shape[0]) for c in group], "r": r[0],
-               "lanes": lanes, "parts": parts, "n": int(group[0][0].shape[0]),
-               "ms": sum(event_ms(lambda c=c: gather_hamming(c[0], c[1], c[2], **c[3]), 10)
-                         for c in group),
-               "plain_ms": sum(event_ms(lambda c=c: gather_hamming_plain(c[0], c[1], c[2], **c[3]), 2)
-                               for c in group)}
-        bounds = [k2_bound(c[0], c[2], sms) for c in group]
-        ent.update(unique_rows=sum(b["unique_rows"] for b in bounds),
-                   bytes=sum(b["bytes"] for b in bounds), ops=sum(b["ops"] for b in bounds))
-        ent.update({k: v for k, v in bound(ent["bytes"], ent["ops"], sms).items()
-                    if k in ("bound_ms", "bound_by")})
-        out.append(ent)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    want = gather_hamming_plain(db, q, ids, **kw)
+    for form in K2_FORMS:
+        got = gather_hamming(db, q, ids, form=form, **kw)
+        if not same_bits(got, want):
+            raise AssertionError(f"K2 {site}, form {form}: differs from the plain version, max abs "
+                                 f"err {max_abs_err(got, want)}")
+    del got
+    qc, r = ids.shape
+    n, lanes = db.shape
+    ent = {"site": site, "launches": launches, "qc": qc, "r": r, "n": n, "lanes": lanes,
+           "parts": kw.get("parts", 1), "err": 0.0, "form": k2_plan(qc, r, n, lanes, sms).form}
+    if dev.type != "cuda":
+        return ent
+    reps = 20 if qc * r * lanes < 1 << 28 else 10
+    for form in K2_FORMS:
+        ent[f"ms_{form}"] = event_ms(lambda: gather_hamming(db, q, ids, form=form, **kw), reps)
+    ent["ms"] = event_ms(lambda: gather_hamming(db, q, ids, **kw), reps)
+    # every kernel of the launch (the row-grouped form's grouping included),
+    # without the host time that event timing of a small launch reads
+    ent["device_ms"] = device_ms(lambda: gather_hamming(db, q, ids, **kw), reps, "")
+    ent["plain_ms"] = event_ms(lambda: gather_hamming_plain(db, q, ids, **kw), 2)
+    ent.update(k2_bound(db, ids, sms))
+    ent["of_bound"] = ent["bound_ms"] / min(ent["ms"], ent["device_ms"] or ent["ms"])
     cuda_lib.launches.update(saved)
-    del calls, groups
-    return out
+    return ent
+
+
+def print_k2_site(ent: dict) -> None:
+    print(f"  K2 {ent['site']}: Qc={ent['qc']} R={ent['r']} N={ent['n']} lanes={ent['lanes']} "
+          f"parts={ent['parts']}, {ent['launches']} launch(es) on the main path: query-major "
+          f"{ent['ms_query']:.4f} ms, row-grouped {ent['ms_row']:.4f} ms, plan ({ent['form']}) "
+          f"{ent['ms']:.4f} ms (device only {ent['device_ms']} ms), plain {ent['plain_ms']:.3f} ms, "
+          f"bound {ent['bound_ms']:.4f} ms ({ent['bound_by']}, {ent['unique_rows']} unique rows): "
+          f"{100 * ent['of_bound']:.0f}% of it")
 
 
 def phase_tiers(dev, cfg, pb, counts: dict) -> dict:
@@ -730,7 +797,15 @@ def phase_tiers(dev, cfg, pb, counts: dict) -> dict:
     if st["tier"] != "full" or recall < 0.99:
         raise AssertionError(f"coarse route + full tier: recall@10 {recall} ({st})")
     res["coarse"] = {"recall": recall, "cold_s": times[0], "s": statistics.median(times[1:])}
-    res["coarse_k2"] = coarse_k2_calls(dev, index, qn, k)
+    # one more coarse request with K2's calls recorded: the prefix rerank
+    # (one launch over the batch) and the full tier's
+    with K2Recorder(keep=2) as rec:
+        index.search(qn, k)
+    if index.stats["search"]["route"] != "coarse" or rec.count != 2:
+        raise AssertionError(f"expected the coarse route's two K2 calls, got {rec.count}")
+    res["k2_sites"] = [k2_site(dev, "coarse prefix rerank", rec.calls[0], 1),
+                       k2_site(dev, "full tier", rec.calls[1], 1)]
+    del rec
 
     # per-row budgets (x next_pow2(n) + 1) in the middle of each packed
     # tier's range under the reference's rule (hnsw._rerank_tier): at
@@ -756,13 +831,25 @@ def phase_tiers(dev, cfg, pb, counts: dict) -> dict:
             raise AssertionError(f"{kind} tier: id overlap with the full tier {overlap} < {need}")
         res[kind] = {"overlap": overlap, "recall": _tie_aware(d, true_d), "cold_s": times[0],
                      "s": statistics.median(times[1:])}
+        with K2Recorder(keep=2) as rec:  # the prefix rerank's call, then the tier's
+            index.search(qn, k)
+        if rec.count != 2:
+            raise AssertionError(f"{kind} tier: {rec.count} K2 calls, expected 2")
+        res["k2_sites"].append(k2_site(dev, f"{kind} tier", rec.calls[1], 1))
+        del rec
     hnsw_mod._RERANK_DEVICE_BYTES = saved
     index._device_packed = None
     torch.cuda.empty_cache()
 
     index.COARSE_MIN = 1 << 62  # force the beam route on this index
     d, ids, times, st = request("beam")
-    del index.COARSE_MIN
+    with K2Recorder(keep=1) as rec:  # the hops' K2 calls, then the full tier's
+        index.search(qn, k)
+    hops = index.stats["search"]["hops"]
+    if rec.count != hops + 1:
+        raise AssertionError(f"beam route: {rec.count} K2 calls for {hops} hops")
+    res["k2_sites"].append(k2_site(dev, "beam hop (the first)", rec.calls[0], hops))
+    del rec, index.COARSE_MIN
     recall = _tie_aware(d, true_d)
     if recall < 0.99:
         raise AssertionError(f"beam route: recall@10 {recall} ({st})")
@@ -833,10 +920,12 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     print(f"main-path launches, tiers: {tier_counts}")
     graph = {"build_s": pb["build_s"], "dump_s": pb["dump_s"], "stages": pb["stages"],
              "request_s": pr["request_s"]}
+    k2_sites = [p5["k2_site"], pb["k2_site"], *tiers["k2_sites"]]
     del pb
     launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] for k in flat_counts}
 
     t = timed("phase 6", phase_timings, dev, cfg, p4, p5)
+    k2_sites.insert(1, t["k2_site"])
     print(f"phase 6 timings on {card}:")
     print(f"  tohnsw {p4['bases'] / 1e6:.1f} Mbases end to end {p4['build_s']:.2f} s; "
           f"request 8 queries: {p4['request_s']:.2f} s at 48 genomes, "
@@ -861,17 +950,16 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
         print(f"  K1 self pairs {cfg['k1_batch']}: kernel {sp['ms']:.4f} ms (both triangles "
               f"{sp['ms_both_triangles']:.4f}), plain {sp['plain_ms']:.3f} ms, cdist "
               f"{sp['library_ms']:.3f} ms, bound {sp['bound_ms']:.4f} ms ({sp['bound_by']})")
-        print(f"  K2 {cfg['k2']}: kernel {k2['ms']:.3f} ms, plain {k2['plain_ms']:.3f} ms, bound "
-              f"{k2['bound_ms']:.3f} ms ({k2['unique_rows']} unique rows)")
+        print(f"  K2 {cfg['k2']} (synthetic ids): query-major {k2['ms_query']:.4f} ms, row-grouped "
+              f"{k2['ms_row']:.4f} ms, plan ({k2['form']}) {k2['ms']:.4f} ms, plain {k2['plain_ms']:.3f} "
+              f"ms, bound {k2['bound_ms']:.4f} ms ({k2['unique_rows']} unique rows)")
         for parts, ent in k2p.items():
-            print(f"  K2 parts={parts} {cfg['k2p']} x {ent['lanes']} lanes: kernel {ent['ms']:.3f} ms, "
-                  f"plain {ent['plain_ms']:.3f} ms, bound {ent['bound_ms']:.3f} ms "
+            print(f"  K2 parts={parts} {cfg['k2p']} x {ent['lanes']} lanes (synthetic ids): query-major "
+                  f"{ent['ms_query']:.4f} ms, row-grouped {ent['ms_row']:.4f} ms, plan ({ent['form']}) "
+                  f"{ent['ms']:.4f} ms, plain {ent['plain_ms']:.3f} ms, bound {ent['bound_ms']:.4f} ms "
                   f"({ent['unique_rows']} unique rows)")
-        for ent in tiers["coarse_k2"]:
-            print(f"  K2 coarse route, {ent['launches']} launch(es) Qc={ent['qc']} R={ent['r']} "
-                  f"lanes={ent['lanes']} N={ent['n']}: kernel {ent['ms']:.3f} ms, plain "
-                  f"{ent['plain_ms']:.3f} ms, bound {ent['bound_ms']:.3f} ms ({ent['bound_by']}, "
-                  f"{ent['unique_rows']} unique rows)")
+        for ent in k2_sites:
+            print_k2_site(ent)
     stages = ", ".join(f"{k} {v:.2f} s" for k, v in graph["stages"].items())
     print(f"  graph {cfg['hnsw_total']} x {cfg['sketch']}: bulk build {graph['build_s']:.1f} s "
           f"({stages}); dump {graph['dump_s']:.1f} s; CLI request of 8 genomes "
@@ -902,12 +990,15 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
               k1["self"].get("library_ms"), shape=list(cfg["k1_batch"]),
               ms_both_triangles=k1["self"].get("ms_both_triangles")),
         entry("gather_hamming", "gsearch_tpu/ops/distance.py:154", k2["err"], k2,
-              shape=list(cfg["k2"]), coarse_route=tiers["coarse_k2"]),
+              shape=list(cfg["k2"]), form=k2.get("form"), ms_query=k2.get("ms_query"),
+              ms_row=k2.get("ms_row"), main_path=[e for e in k2_sites if e["parts"] == 1]),
     ]
     for parts, line in ((2, 201), (4, 207), (8, 217)):
         ent = k2p[parts]
         kernels.append(entry(f"gather_hamming_p{parts}", f"gsearch_tpu/ops/distance.py:{line}",
-                             ent["err"], ent, shape=[*cfg["k2p"], ent["lanes"]]))
+                             ent["err"], ent, shape=[*cfg["k2p"], ent["lanes"]], form=ent.get("form"),
+                             ms_query=ent.get("ms_query"), ms_row=ent.get("ms_row"),
+                             main_path=[e for e in k2_sites if e["parts"] == parts]))
     return {"kernels": kernels}
 
 

@@ -65,23 +65,63 @@
 //   gsearch_tpu_torch/ops/mxu.py: pack_hash16/8/4), SIMD within the word on
 //   x = a ^ b: __vcmpeq2 / __vcmpeq4 set a whole half or byte per equal
 //   field, so popc >> 4 (>> 3) counts them; for nibbles t = x | x >> 1,
-//   t |= t >> 2 leaves bit 4k set iff nibble k differs.  Pad fields never
+//   t |= t >> 2 leaves bit 4k set iff nibble k differs, and 8 per word less
+//   the differing ones count.  The popcounts are summed over a pair's words
+//   and converted once (add_raw, fields_of).  Pad fields never
 //   count (database pads 0, query pads 1 in every field), and s_true is the
 //   number of real slots, not the lane count.
-//   Bound: bytes, Qc * R * S * 4 (3.9 GB for 1024 queries x 80 candidates
-//   at S = 12000; a quarter of that for the 8-bit tier).  Design: one warp
-//   per candidate row, eight candidates of one query per block so the query
-//   row is served from L1/L2; 16-byte
-//   loads when both rows are 16-byte aligned, a scalar tail otherwise; a
-//   warp-shuffle reduction.  Ids outside [0, N) give +inf.  The TPU kernel
-//   writes (S - eq) / S, this one 1 - eq / S (the XLA rerank's form); the
-//   two can differ by one ulp.
+//   Bound: bytes, each row the ids reference read once: (unique valid ids
+//   + Qc) * L * 4, plus the ids and the output (chip_smoke.py k2_bound);
+//   one op a lane compare is below the byte time except where few rows
+//   repeat very often.  Each pair needs one side's segment moved to the SM
+//   for it, so what a form can reach is set by where that side is served
+//   from.  Two forms, chosen by shape in the wrapper (ops/distance.py
+//   k2_plan):
+//   - query-major (form 0, gather_eq_kernel): one warp per (query,
+//     candidate) pair, eight candidates of one query a block, so the query
+//     row comes from L1 and the candidate row from HBM (or L2 where rows
+//     repeat close together); 16-byte loads when both rows are 16-byte
+//     aligned, a scalar tail otherwise.  It reads a row once for every
+//     query that lists it: at the graph's coarse rerank (~8 listings a row
+//     over 262,144 rows) that is 8 GB from HBM.  It has no grouping to pay
+//     for, so small launches stay here.
+//   - row-grouped (form 1): the valid pairs are grouped by row id in row
+//     order, CSR by a counting sort: k2_hist counts listings into an [N]
+//     workspace (+inf for invalid ids), k2_scan_tiles / k2_scan_apply turn
+//     the counts into each row's span of the pair list (a block scan a
+//     4,096-row tile; the last tile block scans the tile sums), k2_scatter
+//     fills the spans (any order inside a span: each pair's result is its
+//     own).  The compare balances work by pairs, not rows: a warp takes a
+//     run of 32 consecutive pairs of the list (lane l holds pair l), loads
+//     a row's lane segment (1,024 lanes, 4 KB) into registers where the
+//     row changes, after a bulk L2 prefetch (cp.async.bulk.prefetch) issued
+//     two changes ahead, and compares it with each pair's query segment.
+//     A persistent block of 16 warps takes chunks of 16 consecutive runs
+//     from a counter, segment-major: the warps of an SM work on
+//     neighbouring rows, and neighbouring rows (one species or family of a
+//     collection) are listed by the same few queries, so the queries come
+//     from L1 (33 distinct queries in a window of 256 pairs at the coarse
+//     rerank, 6 at the full tier).  Where the lanes span several
+//     segments, the segments' counts add atomically into a per-pair
+//     workspace and the last segment of a run (a ticket) writes the
+//     distances and zeroes the workspace, as K1's split does; the [N]
+//     counts are zeroed by the warp that holds a row's first pair.  Every
+//     workspace is zero on entry and left zero, so no launch fills it; four
+//     counters are cleared (a 16-byte memset).  The compare of raw lanes is
+//     K1's setp + predicated add: with one compare per loaded word (no
+//     register tile, unlike K1) the instruction count, not the bytes, was
+//     the limit of the first versions (PERF.md).
+//   Ids outside [0, N) give +inf in both forms.  The TPU kernel writes
+//   (S - eq) / S, this one 1 - eq / S (the XLA rerank's form); the two can
+//   differ by one ulp.
 //
 // Each launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() for the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -305,23 +345,48 @@ cudaError_t k1_dispatch(const K1Args& a, dim3 grid, bool vec, int device, cudaSt
 
 constexpr int K2_WARPS = 8;  // candidates per block, one warp each
 
-// Equal fields of two lanes (see the header note).
+// A raw count of two lanes whose sum over a pair's words gives its equal
+// fields (see the header note): parts = 1 equal lanes (K1's compare into a
+// predicate and a predicated add); 2 and 4 the set bits of equal halves or
+// bytes (16 or 8 a field); 8 the differing nibbles.
 template <int PARTS>
-__device__ __forceinline__ int eq_fields(int a, int b) {
-  if (PARTS == 1) return a == b;
-  const unsigned x = (unsigned)(a ^ b);
-  if (PARTS == 2) return __popc(__vcmpeq2(x, 0u)) >> 4;
-  if (PARTS == 4) return __popc(__vcmpeq4(x, 0u)) >> 3;
-  unsigned t = x | (x >> 1);
-  t |= t >> 2;
-  return 8 - __popc(t & 0x11111111u);
+__device__ __forceinline__ void add_raw(unsigned& e, int a, int b) {
+  if constexpr (PARTS == 1) {
+    int acc = (int)e;
+    count_eq(acc, a, b);
+    e = (unsigned)acc;
+  } else {
+    const unsigned x = (unsigned)(a ^ b);
+    if constexpr (PARTS == 2) {
+      e += __popc(__vcmpeq2(x, 0u));
+    } else if constexpr (PARTS == 4) {
+      e += __popc(__vcmpeq4(x, 0u));
+    } else {
+      unsigned t = x | (x >> 1);
+      t |= t >> 2;
+      e += __popc(t & 0x11111111u);
+    }
+  }
 }
 
+// equal fields from a pair's summed raw count over `words` lanes
+template <int PARTS>
+__device__ __forceinline__ unsigned fields_of(unsigned raw, int words) {
+  if constexpr (PARTS == 1) return raw;
+  if constexpr (PARTS == 2) return raw >> 4;
+  if constexpr (PARTS == 4) return raw >> 3;
+  return 8u * (unsigned)words - raw;
+}
+
+// blockIdx.x: eight candidates of a query; blockIdx.y: a span of the lanes.
+// With several spans, the spans' counts add into eqw [pairs] and the last
+// span of a pair (tickets [pairs]) writes its distance; both are zero on
+// entry and left zero.
 template <int PARTS>
 __global__ void __launch_bounds__(K2_WARPS * 32)
 gather_eq_kernel(const int32_t* __restrict__ db, const int32_t* __restrict__ q,
-                 const int32_t* __restrict__ ids, float* __restrict__ out,
-                 int n, int lanes, int s_true, int qc, int r, int blocks_per_query) {
+                 const int32_t* __restrict__ ids, float* __restrict__ out, int* eqw, int* tickets,
+                 int n, int lanes, int s_true, int qc, int r, int blocks_per_query, int span) {
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x / blocks_per_query;
@@ -330,31 +395,330 @@ gather_eq_kernel(const int32_t* __restrict__ db, const int32_t* __restrict__ q,
   const size_t o = (size_t)i * r + j;
   const int id = ids[o];
   if (id < 0 || id >= n) {  // warp-uniform
-    if (lane == 0) out[o] = __int_as_float(0x7f800000);
+    if (lane == 0 && blockIdx.y == 0) out[o] = __int_as_float(0x7f800000);
     return;
   }
-  const int32_t* row = db + (size_t)id * lanes;
-  const int32_t* qrow = q + (size_t)i * lanes;
-  int eq = 0;
+  const int c0 = blockIdx.y * span, c1 = min(lanes, c0 + span);
+  const int32_t* row = db + (size_t)id * lanes + c0;
+  const int32_t* qrow = q + (size_t)i * lanes + c0;
+  unsigned eq = 0;
   int done = 0;
   if ((((uintptr_t)row | (uintptr_t)qrow) & 15) == 0) {
     const int4* row4 = reinterpret_cast<const int4*>(row);
     const int4* q4 = reinterpret_cast<const int4*>(qrow);
-    const int nv = lanes >> 2;
+    const int nv = (c1 - c0) >> 2;
 #pragma unroll 4
     for (int v = lane; v < nv; v += 32) {
       const int4 a = __ldg(row4 + v);
       const int4 b = __ldg(q4 + v);
-      eq += eq_fields<PARTS>(a.x, b.x) + eq_fields<PARTS>(a.y, b.y) +
-            eq_fields<PARTS>(a.z, b.z) + eq_fields<PARTS>(a.w, b.w);
+      add_raw<PARTS>(eq, a.x, b.x);
+      add_raw<PARTS>(eq, a.y, b.y);
+      add_raw<PARTS>(eq, a.z, b.z);
+      add_raw<PARTS>(eq, a.w, b.w);
     }
     done = nv << 2;
   }
-  for (int c = done + lane; c < lanes; c += 32)
-    eq += eq_fields<PARTS>(__ldg(row + c), __ldg(qrow + c));
+  for (int c = done + lane; c < c1 - c0; c += 32) add_raw<PARTS>(eq, __ldg(row + c), __ldg(qrow + c));
+  eq = fields_of<PARTS>(__reduce_add_sync(0xffffffffu, eq), max(0, c1 - c0));
+  if (lane != 0) return;
+  if (gridDim.y == 1) {
+    out[o] = 1.0f - (float)eq / (float)s_true;
+    return;
+  }
+  atomicAdd(eqw + o, (int)eq);
+  __threadfence();
+  if (atomicAdd(tickets + o, 1) != (int)gridDim.y - 1) return;
+  tickets[o] = 0;  // every other span of the pair has counted in
+  __threadfence();
+  out[o] = 1.0f - (float)atomicExch(eqw + o, 0) / (float)s_true;
+}
+
+// ---- K2, row-grouped form ----------------------------------------------------
+
+constexpr int K2R_SEG = 1024;       // lanes a segment: 4 KB of a row
+constexpr int K2R_RUN = 32;         // pairs a warp's run (one a lane)
+constexpr int K2R_WARPS = 16;       // warps a compare block: one block an SM
+constexpr int K2R_THREADS = 256;    // threads a hist / scatter block
+constexpr int K2R_SCAN = 1024;      // threads a scan block
+constexpr int K2R_TILE = 4 * K2R_SCAN;  // rows a scan block (4 a thread)
+// the counters, cleared by the launcher: scan blocks done, valid pairs,
+// compare chunks handed out
+enum { K2R_TICKET = 0, K2R_TOTAL = 1, K2R_NEXT = 2 };
+
+// the grouping's device state; cnt, eq and tickets are zero on entry and
+// left zero
+struct K2Group {
+  int* cnt;      // [n] listings of a row, then its span's start, then the fill cursor
+  int* eq;       // [pairs] counts summed over segments (several only)
+  int* tickets;  // [runs] segments done (several only)
+  int* ctr;      // [4] the counters
+  int* tiles;    // [scan blocks] listings of a tile of rows, then the tile's start
+  int* plist;    // [pairs] pair indices in row order
+  int* prow;     // [pairs] their rows
+};
+
+// count each valid pair's row; out-of-range ids are written +inf here and
+// take no further part
+__global__ void __launch_bounds__(K2R_THREADS)
+k2_hist(const int32_t* __restrict__ ids, float* __restrict__ out, K2Group g, int n, int pairs) {
+  const int p = blockIdx.x * K2R_THREADS + threadIdx.x;
+  if (p >= pairs) return;
+  const int id = ids[p];
+  if (id < 0 || id >= n)
+    out[p] = __int_as_float(0x7f800000);
+  else
+    atomicAdd(g.cnt + id, 1);
+}
+
+// inclusive sum over the warp
+__device__ __forceinline__ int warp_scan(int x, int lane) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) eq += __shfl_down_sync(0xffffffffu, eq, off);
-  if (lane == 0) out[o] = 1.0f - (float)eq / (float)s_true;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int t = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x += t;
+  }
+  return x;
+}
+
+// exclusive sum over a K2R_SCAN-thread block; `total` gets the block's sum
+__device__ __forceinline__ int block_scan(int x, int& total) {
+  __shared__ int sums[33];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int inc = warp_scan(x, lane);
+  if (lane == 31) sums[wid] = inc;
+  __syncthreads();
+  if (wid == 0) {
+    const int w = sums[lane];
+    const int wi = warp_scan(w, lane);
+    sums[lane] = wi - w;
+    if (lane == 31) sums[32] = wi;
+  }
+  __syncthreads();
+  total = sums[32];
+  const int ex = sums[wid] + inc - x;
+  __syncthreads();  // sums is reused by the next call
+  return ex;
+}
+
+// listings of each tile of K2R_TILE rows; the last block to finish turns
+// the tile sums into the tiles' starts and counts the valid pairs
+__global__ void __launch_bounds__(K2R_SCAN) k2_scan_tiles(K2Group g, int n) {
+  __shared__ int last;
+  const int base = blockIdx.x * K2R_TILE + 4 * threadIdx.x;
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s += base + k < n ? g.cnt[base + k] : 0;
+  int total;
+  block_scan(s, total);
+  if (threadIdx.x == 0) g.tiles[blockIdx.x] = total;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(g.ctr + K2R_TICKET, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int carry = 0;
+  for (int k0 = 0; k0 < (int)gridDim.x; k0 += K2R_SCAN) {  // block-uniform
+    const int k = k0 + threadIdx.x;
+    const int v = k < (int)gridDim.x ? __ldcg(g.tiles + k) : 0;
+    const int ex = block_scan(v, total);
+    if (k < (int)gridDim.x) g.tiles[k] = carry + ex;
+    carry += total;
+  }
+  if (threadIdx.x == 0) g.ctr[K2R_TOTAL] = carry;
+}
+
+// each listed row's span of the pair list, in row order: cnt[row] = start
+__global__ void __launch_bounds__(K2R_SCAN) k2_scan_apply(K2Group g, int n) {
+  const int base = blockIdx.x * K2R_TILE + 4 * threadIdx.x;
+  int c[4], s = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    c[k] = base + k < n ? g.cnt[base + k] : 0;
+    s += c[k];
+  }
+  int total;
+  int start = g.tiles[blockIdx.x] + block_scan(s, total);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (c[k] > 0) g.cnt[base + k] = start;
+    start += c[k];
+  }
+}
+
+// the pair list in row order (any order inside a row's span: each pair's
+// result is its own)
+__global__ void __launch_bounds__(K2R_THREADS)
+k2_scatter(const int32_t* __restrict__ ids, K2Group g, int n, int pairs) {
+  const int p = blockIdx.x * K2R_THREADS + threadIdx.x;
+  if (p >= pairs) return;
+  const int id = ids[p];
+  if (id < 0 || id >= n) return;
+  const int pos = atomicAdd(g.cnt + id, 1);
+  g.plist[pos] = p;
+  g.prow[pos] = id;
+}
+
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned m;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
+  return m;
+}
+
+// Asks L2 for `bytes` (a multiple of 16) at a 16-byte aligned address:
+// one bulk prefetch, no registers, no completion to wait for.
+__device__ __forceinline__ void prefetch_l2(const void* p, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(p), "r"(bytes) : "memory");
+}
+
+// One warp's run of K2R_RUN consecutive pairs of the row-ordered list, in
+// lane segment `seg`.  Lane l holds pair l's index and row; the row
+// segment is loaded into registers where the row changes (streaming loads:
+// it is not read again), after an L2 prefetch issued two row changes ahead,
+// and compared with each pair's query segment (cached loads: the
+// neighbouring runs of the block list the same queries).
+template <int PARTS, bool VEC>
+__device__ __forceinline__ void k2_run(const int32_t* __restrict__ db, const int32_t* __restrict__ q,
+                                       float* __restrict__ out, const K2Group& g, int lanes,
+                                       int s_true, int r, int nseg, int seg, int run, int total,
+                                       int lane) {
+  constexpr int NR = VEC ? K2R_SEG / 128 : K2R_SEG / 32;  // row registers a lane
+  using Word = typename std::conditional<VEC, int4, int>::type;
+  const int s0 = seg * K2R_SEG, len = min(K2R_SEG, lanes - s0);
+  const int nw = VEC ? len / 4 : len;  // words of the segment
+  const int k0 = run * K2R_RUN, np = min(K2R_RUN, total - k0);
+  const int mrow = lane < np ? g.prow[k0 + lane] : -1;
+  const int mpair = lane < np ? g.plist[k0 + lane] : 0;
+  int prev = __shfl_up_sync(0xffffffffu, mrow, 1);
+  if (lane == 0) prev = k0 > 0 ? g.prow[k0 - 1] : -2;
+  // a row's first pair overall zeroes k2_scatter's cursor, done with
+  if (seg == 0 && lane < np && mrow != prev) g.cnt[mrow] = 0;
+  // the pairs where the warp loads a row: lane 0 and each change of row
+  const unsigned loads = __ballot_sync(0xffffffffu, lane < np && (lane == 0 || mrow != prev));
+  const bool loader = (loads >> lane) & 1;
+  const int my_load = __popc(loads & lanes_below());
+  const int32_t* my_src = db + (size_t)(mrow < 0 ? 0 : mrow) * lanes + s0;
+  if (VEC && loader && my_load < 2) prefetch_l2(my_src, 4 * len);
+  Word rv[NR];
+  unsigned my_eq = 0;
+  int nload = 0;
+  // this lane's raw count of a pair's segment (`full`: the segment is
+  // whole, every word in range, no masks)
+  auto count = [&](int pair, auto full) {
+    const Word* qs = reinterpret_cast<const Word*>(q + (size_t)(pair / r) * lanes + s0);
+    Word b[NR];
+#pragma unroll
+    for (int u = 0; u < NR; ++u)
+      if (full.value || lane + 32 * u < nw) b[u] = __ldg(qs + lane + 32 * u);
+    unsigned e = 0;
+#pragma unroll
+    for (int u = 0; u < NR; ++u)
+      if (full.value || lane + 32 * u < nw) {
+        if constexpr (VEC) {
+          add_raw<PARTS>(e, rv[u].x, b[u].x);
+          add_raw<PARTS>(e, rv[u].y, b[u].y);
+          add_raw<PARTS>(e, rv[u].z, b[u].z);
+          add_raw<PARTS>(e, rv[u].w, b[u].w);
+        } else {
+          add_raw<PARTS>(e, rv[u], b[u]);
+        }
+      }
+    return e;
+  };
+  const bool whole = nw == 32 * NR;
+  for (int j = 0; j < np;) {
+    if ((loads >> j) & 1) {  // warp-uniform
+      if (VEC && loader && my_load == nload + 2) prefetch_l2(my_src, 4 * len);
+      ++nload;
+      const int row = __shfl_sync(0xffffffffu, mrow, j);
+      const Word* src = reinterpret_cast<const Word*>(db + (size_t)row * lanes + s0);
+#pragma unroll
+      for (int u = 0; u < NR; ++u)
+        if (lane + 32 * u < nw) rv[u] = __ldcs(src + lane + 32 * u);
+    }
+    const int pair = __shfl_sync(0xffffffffu, mpair, j);
+    const unsigned e = fields_of<PARTS>(__reduce_add_sync(0xffffffffu, whole ? count(pair, std::true_type())
+                                                                           : count(pair, std::false_type())),
+                                        len);
+    if (lane == j) my_eq = e;
+    ++j;
+  }
+  const bool mine = lane < np;
+  if (nseg == 1) {
+    if (mine) out[mpair] = 1.0f - (float)my_eq / (float)s_true;
+    return;
+  }
+  if (mine) atomicAdd(g.eq + mpair, (int)my_eq);
+  __threadfence();
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) {
+    last = atomicAdd(g.tickets + run, 1) == nseg - 1;
+    if (last) g.tickets[run] = 0;  // every other segment of the run has counted in
+  }
+  if (__shfl_sync(0xffffffffu, last, 0)) {
+    __threadfence();
+    if (mine) out[mpair] = 1.0f - (float)atomicExch(g.eq + mpair, 0) / (float)s_true;
+  }
+}
+
+// A persistent grid, one block an SM.  The runs are cut into chunks of
+// K2R_WARPS consecutive runs (warp w takes the chunk's run w), handed to
+// the blocks in order from a counter, segment-major: the warps of an SM
+// compare neighbouring rows, which list the same queries, so the queries'
+// segments are read from L1, and the live query slab is one segment's.
+template <int PARTS, bool VEC>
+__global__ void __launch_bounds__(K2R_WARPS * 32, 1)
+k2_compare(const int32_t* __restrict__ db, const int32_t* __restrict__ q, float* __restrict__ out,
+           K2Group g, int lanes, int s_true, int r, int nseg) {
+  __shared__ int work;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int total = g.ctr[K2R_TOTAL];
+  const int runs = (total + K2R_RUN - 1) / K2R_RUN;
+  const int chunks = (runs + K2R_WARPS - 1) / K2R_WARPS;
+  const long long works = (long long)chunks * nseg;
+  for (;;) {
+    if (threadIdx.x == 0) work = atomicAdd(g.ctr + K2R_NEXT, 1);
+    __syncthreads();
+    const long long w = work;
+    __syncthreads();
+    if (w >= works) return;
+    const int seg = (int)(w / chunks);
+    const int run = (int)(w % chunks) * K2R_WARPS + warp;
+    if (run < runs) k2_run<PARTS, VEC>(db, q, out, g, lanes, s_true, r, nseg, seg, run, total, lane);
+  }
+}
+
+// the compare kernel's grid, the blocks resident on the card, found once
+// per (device, parts, vec) with L1 preferred over shared memory
+template <int PARTS, bool VEC>
+cudaError_t k2_compare_run(const int32_t* db, const int32_t* q, float* out, const K2Group& g,
+                           int lanes, int s_true, int r, int nseg, int device, cudaStream_t st) {
+  static int grid[64] = {};
+  int blocks = device >= 0 && device < 64 ? grid[device] : 0;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    cudaError_t err = cudaFuncSetAttribute(k2_compare<PARTS, VEC>,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout, 0);
+    if (err != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+      return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k2_compare<PARTS, VEC>,
+                                                        K2R_WARPS * 32, 0);
+    if (err != cudaSuccess) return err;
+    blocks = sms * (per_sm > 0 ? per_sm : 1);
+    if (device >= 0 && device < 64) grid[device] = blocks;
+  }
+  k2_compare<PARTS, VEC><<<blocks, K2R_WARPS * 32, 0, st>>>(db, q, out, g, lanes, s_true, r, nseg);
+  return cudaGetLastError();
+}
+
+template <int PARTS>
+cudaError_t k2_compare_dispatch(bool vec, const int32_t* db, const int32_t* q, float* out,
+                                const K2Group& g, int lanes, int s_true, int r, int nseg,
+                                int device, cudaStream_t st) {
+  return vec ? k2_compare_run<PARTS, true>(db, q, out, g, lanes, s_true, r, nseg, device, st)
+             : k2_compare_run<PARTS, false>(db, q, out, g, lanes, s_true, r, nseg, device, st);
 }
 
 }  // namespace
@@ -409,38 +773,87 @@ extern "C" int gs_hamming_frac(const void* q, const void* db, void* out, void* c
 }
 
 // db [n, lanes], q [qc, lanes] int32, ids [qc, r] int32 -> out [qc, r] f32;
-// parts in {1, 2, 4, 8} fields a lane.
+// parts in {1, 2, 4, 8} fields a lane; form 0 query-major, its lanes cut
+// into `splits` spans, or 1 row-grouped.  The int32 workspaces: `zeroed`,
+// zero on entry and left zero, 2 * qc * r entries for a split query-major
+// launch, n + qc * r + ceil(qc * r / 32) for the row-grouped form, which
+// also takes `scratch`, 2 * qc * r + 4 + ceil(n / 4096) entries of any
+// content.
 extern "C" int gs_gather_hamming(const void* db, const void* q, const void* ids,
                                  void* out, int n, int lanes, int s_true, int parts,
-                                 int qc, int r, int device, void* stream) {
+                                 int qc, int r, int form, int splits, void* zeroed,
+                                 void* scratch, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (parts != 1 && parts != 2 && parts != 4 && parts != 8) return (int)cudaErrorInvalidValue;
+  if (form == 1) {
+    const long long pairs = (long long)qc * r;
+    if (pairs > 0x3fffffffLL || n < 1 || lanes < 1 || zeroed == nullptr || scratch == nullptr)
+      return (int)cudaErrorInvalidValue;
+    const int np = (int)pairs;
+    K2Group g;
+    g.cnt = (int*)zeroed;
+    g.eq = g.cnt + n;
+    g.tickets = g.eq + np;
+    g.plist = (int*)scratch;
+    g.prow = g.plist + np;
+    g.ctr = g.prow + np;
+    g.tiles = g.ctr + 4;
+    cudaStream_t st = (cudaStream_t)stream;
+    err = cudaMemsetAsync(g.ctr, 0, 4 * sizeof(int), st);
+    if (err != cudaSuccess) return (int)err;
+    const int pblocks = (np + K2R_THREADS - 1) / K2R_THREADS;
+    const int tiles = (n + K2R_TILE - 1) / K2R_TILE;
+    const int32_t* id = (const int32_t*)ids;
+    float* o = (float*)out;
+    k2_hist<<<pblocks, K2R_THREADS, 0, st>>>(id, o, g, n, np);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    k2_scan_tiles<<<tiles, K2R_SCAN, 0, st>>>(g, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    k2_scan_apply<<<tiles, K2R_SCAN, 0, st>>>(g, n);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    k2_scatter<<<pblocks, K2R_THREADS, 0, st>>>(id, g, n, np);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    const int nseg = (lanes + K2R_SEG - 1) / K2R_SEG;
+    const int32_t *d = (const int32_t*)db, *qq = (const int32_t*)q;
+    const bool vec = lanes % 4 == 0 && (((uintptr_t)db | (uintptr_t)q) & 15) == 0;
+    switch (parts) {
+      case 1: return (int)k2_compare_dispatch<1>(vec, d, qq, o, g, lanes, s_true, r, nseg, device, st);
+      case 2: return (int)k2_compare_dispatch<2>(vec, d, qq, o, g, lanes, s_true, r, nseg, device, st);
+      case 4: return (int)k2_compare_dispatch<4>(vec, d, qq, o, g, lanes, s_true, r, nseg, device, st);
+      default: return (int)k2_compare_dispatch<8>(vec, d, qq, o, g, lanes, s_true, r, nseg, device, st);
+    }
+  }
+  if (form != 0 || splits < 1 || splits > 65535 || (splits > 1 && zeroed == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int blocks_per_query = (r + K2_WARPS - 1) / K2_WARPS;
   const long long blocks = (long long)qc * blocks_per_query;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)blocks), block(K2_WARPS * 32);
+  if (blocks > 0x7fffffffLL || (splits > 1 && (long long)qc * r > 0x3fffffffLL))
+    return (int)cudaErrorInvalidConfiguration;
+  const int span = ((lanes + splits - 1) / splits + 127) / 128 * 128;  // whole 16-byte rounds
+  const dim3 grid((unsigned)blocks, (unsigned)splits), block(K2_WARPS * 32);
   cudaStream_t st = (cudaStream_t)stream;
   const int32_t *d = (const int32_t*)db, *qq = (const int32_t*)q, *id = (const int32_t*)ids;
   float* o = (float*)out;
+  int* eqw = (int*)zeroed;
+  int* tk = eqw == nullptr ? nullptr : eqw + (size_t)qc * r;
   switch (parts) {
     case 1:
-      gather_eq_kernel<1><<<grid, block, 0, st>>>(d, qq, id, o, n, lanes, s_true, qc, r,
-                                                  blocks_per_query);
+      gather_eq_kernel<1><<<grid, block, 0, st>>>(d, qq, id, o, eqw, tk, n, lanes, s_true, qc, r,
+                                                  blocks_per_query, span);
       break;
     case 2:
-      gather_eq_kernel<2><<<grid, block, 0, st>>>(d, qq, id, o, n, lanes, s_true, qc, r,
-                                                  blocks_per_query);
+      gather_eq_kernel<2><<<grid, block, 0, st>>>(d, qq, id, o, eqw, tk, n, lanes, s_true, qc, r,
+                                                  blocks_per_query, span);
       break;
     case 4:
-      gather_eq_kernel<4><<<grid, block, 0, st>>>(d, qq, id, o, n, lanes, s_true, qc, r,
-                                                  blocks_per_query);
-      break;
-    case 8:
-      gather_eq_kernel<8><<<grid, block, 0, st>>>(d, qq, id, o, n, lanes, s_true, qc, r,
-                                                  blocks_per_query);
+      gather_eq_kernel<4><<<grid, block, 0, st>>>(d, qq, id, o, eqw, tk, n, lanes, s_true, qc, r,
+                                                  blocks_per_query, span);
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      gather_eq_kernel<8><<<grid, block, 0, st>>>(d, qq, id, o, eqw, tk, n, lanes, s_true, qc, r,
+                                                  blocks_per_query, span);
+      break;
   }
   return (int)cudaGetLastError();
 }

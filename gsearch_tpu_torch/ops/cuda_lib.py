@@ -73,20 +73,25 @@ def build() -> str:
     return out
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """A build of csrc/*.cu loaded, with the C functions' argument types."""
+    lib = ctypes.CDLL(path)
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.gs_hamming_frac.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
+    lib.gs_hamming_frac.restype = i
+    lib.gs_gather_hamming.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp, i, vp]
+    lib.gs_gather_hamming.restype = i
+    lib.gs_error_string.argtypes = [i]
+    lib.gs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, i = ctypes.c_void_p, ctypes.c_int
-            lib.gs_hamming_frac.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
-            lib.gs_hamming_frac.restype = i
-            lib.gs_gather_hamming.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
-            lib.gs_gather_hamming.restype = i
-            lib.gs_error_string.argtypes = [i]
-            lib.gs_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(build())
         return _lib
 
 

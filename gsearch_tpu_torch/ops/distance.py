@@ -14,7 +14,14 @@ Two kernels, each a wrapper beside its plain torch version:
   - `gather_hamming` (K2): distances of Qc queries to R database rows
     picked by id, [Qc, R], over rows of raw 32-bit slots (`parts=1`) or of
     packed 16-, 8- or 4-bit slot hashes (`parts=2, 4, 8`: the graph index's
-    rerank tiers and the compact searcher, ops/mxu.py).
+    rerank tiers and the compact searcher, ops/mxu.py).  Two forms:
+    query-major (a warp a pair, a row read for every query that lists it;
+    small launches cut a pair's lanes over several warps) and row-grouped
+    (the pairs grouped by row id on the card, each listed row's segment
+    read once and compared with every query that lists it).  `k2_plan`
+    picks the form from the shape: row-grouped past one wave of pairs
+    where evenly spread ids would repeat rows; the bound of both is the
+    bytes of the rows the ids reference, each read once.
 A CPU tensor takes the plain version; a CUDA tensor launches the
 hand-written kernel of csrc/hamming.cu (see the notes there) or raises.
 
@@ -183,9 +190,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# split workspace by (device, stream): int32 counts and tickets that the
-# kernel finds zero and leaves zero (csrc/hamming.cu); grown, never shrunk
+# workspaces by (device, stream), grown, never shrunk: K1's split counts and
+# tickets, which the kernel finds zero and leaves zero (csrc/hamming.cu),
+# and K2's row-grouped (zeroed, scratch) pair
 _workspace: dict = {}
+_k2_ws: dict = {}
 _workspace_lock = threading.Lock()
 
 
@@ -321,13 +330,75 @@ def gather_hamming_plain(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor, *
     return torch.where(ok, _distance(eq, s_true), torch.inf)
 
 
+#: K2's forms, in the order of csrc/hamming.cu's `form` argument
+K2_FORMS = ("query", "row")
+#: the row-grouped form (csrc/hamming.cu): lanes a segment, pairs a warp's
+#: run, rows a scan block's tile
+K2_SEG, K2_RUN, K2_SCAN_TILE = 1024, 32, 4096
+#: the row-grouped form is taken where a launch holds at least one wave of
+#: warps' pairs (SMs x K2_WAVE_PAIRS) and its pairs are expected to list
+#: each referenced row at least K2_REPEAT times
+K2_WAVE_PAIRS, K2_REPEAT = 64, 1.25
+
+
+class K2Plan(NamedTuple):
+    """One K2 launch: the form, the rows its ids are expected to reference
+    were they spread evenly over the N rows, and the spans the query-major
+    form cuts a pair's lanes into."""
+    form: str
+    unique: float
+    splits: int
+
+
+@functools.lru_cache(maxsize=4096)
+def k2_plan(qc: int, r: int, n: int, lanes: int, sms: int, form: str | None = None) -> K2Plan:
+    """K2's form for a shape, a pure function of (Qc, R, N, lanes, the
+    card's SM count).  The query-major form reads a row for every pair;
+    the row-grouped form reads each referenced row once, N * (1 - (1 -
+    1/N)^pairs) of them for ids spread evenly, and pays four grouping
+    launches.  A launch with fewer pairs than one wave of warps (SMs x
+    K2_WAVE_PAIRS) stays query-major, its time being latency, and cuts each
+    pair's lanes into spans of at least K2_SEG lanes, enough to fill the
+    wave; so does a launch whose rows would repeat less than K2_REPEAT
+    times.  `form` forces one of K2_FORMS (tests, chip_smoke)."""
+    if form is not None and form not in K2_FORMS:
+        raise ValueError(f"form {form!r} not among {K2_FORMS}")
+    pairs = qc * r
+    wave = sms * K2_WAVE_PAIRS
+    unique = min(float(pairs), float(n * -np.expm1(pairs * np.log1p(-1.0 / n))) if n > 1 else 1.0)
+    if form is None:
+        form = "row" if pairs >= wave and pairs >= K2_REPEAT * unique else "query"
+    splits = 1
+    if form == "query" and pairs < wave:
+        splits = max(1, min(_cdiv(wave, pairs), _cdiv(lanes, K2_SEG), _GRID_YZ))
+    return K2Plan(form, unique, splits)
+
+
+def _k2_workspace(device: torch.device, stream: int, zeroed: int, scratch: int):
+    """K2's int32 workspaces (the row-grouped form's, or a query-major
+    launch's with split lanes): `zeroed` entries that the kernels find
+    zero and leave zero, and `scratch` of any content."""
+    key = (device.index, stream)
+    with _workspace_lock:
+        have = _k2_ws.get(key)
+        if have is None or have[0].numel() < zeroed or have[1].numel() < scratch:
+            old = (0, 0) if have is None else (have[0].numel(), have[1].numel())
+            have = (torch.zeros(max(zeroed, old[0]), dtype=torch.int32, device=device),
+                    torch.empty(max(scratch, old[1]), dtype=torch.int32, device=device))
+            _k2_ws[key] = have
+        return have
+
+
 def gather_hamming(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor, *,
-                   parts: int = 1, s_true: int | None = None) -> torch.Tensor:
+                   parts: int = 1, s_true: int | None = None, form: str | None = None) -> torch.Tensor:
     """K2 wrapper: the CUDA kernel for CUDA tensors, the plain version for
-    CPU ones.  db [N, L] and q [Qc, L] f32 or int32 lanes, ids [Qc, R]
-    int32.  Launches count under gather_hamming (parts=1) or
-    gather_hamming_p{parts}."""
+    CPU ones (whatever the form).  db [N, L] and q [Qc, L] f32 or int32
+    lanes, ids [Qc, R] int32.  `form` forces one of K2_FORMS (tests,
+    chip_smoke; default: k2_plan's).  Launches count under gather_hamming
+    (parts=1) or gather_hamming_p{parts}."""
     s_true = _check_gather(db, q, ids, parts, s_true)
+    if form is not None and form not in K2_FORMS:
+        raise ValueError(f"form {form!r} not among {K2_FORMS}")
     if q.device.type == "cpu":
         return gather_hamming_plain(db, q, ids, parts=parts, s_true=s_true)
     _cuda_args(db, q, ids, what="gather_hamming")
@@ -337,10 +408,23 @@ def gather_hamming(db: torch.Tensor, q: torch.Tensor, ids: torch.Tensor, *,
     out = torch.empty(ids.shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
+    n, lanes = di.shape
+    (qc, r), pairs = ids.shape, ids.numel()
+    if pairs >= 1 << 30:
+        raise ValueError(f"gather_hamming: {qc} x {r} pairs pass the kernel's 2^30 limit")
+    plan = k2_plan(qc, r, n, lanes, _sm_count(q.device.index), form=form)
+    stream = cuda_lib.current_stream(q.device)
+    zeroed = scratch = 0
+    if plan.form == "row":
+        ws = _k2_workspace(q.device, stream, n + pairs + _cdiv(pairs, K2_RUN),
+                           2 * pairs + 4 + _cdiv(n, K2_SCAN_TILE))
+        zeroed, scratch = ws[0].data_ptr(), ws[1].data_ptr()
+    elif plan.splits > 1:
+        zeroed = _k2_workspace(q.device, stream, 2 * pairs, 0)[0].data_ptr()
     lib = cuda_lib.load()
     rc = lib.gs_gather_hamming(
-        di.data_ptr(), qi.data_ptr(), ids.data_ptr(), out.data_ptr(), di.shape[0], di.shape[1],
-        s_true, parts, ids.shape[0], ids.shape[1], q.device.index, cuda_lib.current_stream(q.device))
+        di.data_ptr(), qi.data_ptr(), ids.data_ptr(), out.data_ptr(), n, lanes, s_true, parts, qc, r,
+        K2_FORMS.index(plan.form), plan.splits, zeroed, scratch, q.device.index, stream)
     cuda_lib.check(lib, rc, "gs_gather_hamming")
     cuda_lib.launches[_PARTS[parts]] += 1
     return out

@@ -16,7 +16,6 @@ Prints, beside the card's name:
 
 from __future__ import annotations
 
-import ctypes
 import os
 import re
 import subprocess
@@ -40,18 +39,6 @@ _SMEM_SM = 227 * 1024
 def _resident(wq: int, wn: int, stages: int) -> int:
     smem = stages * (wq * 4 + wn * 8) * dist.K1_CHUNK * 4
     return max(1, min(_SMEM_SM // (smem + 1024), 2048 // (wq * wn), 32))
-
-
-def _bind(path: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(path)
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.gs_hamming_frac.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp]
-    lib.gs_hamming_frac.restype = i
-    lib.gs_gather_hamming.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, vp]
-    lib.gs_gather_hamming.restype = i
-    lib.gs_error_string.argtypes = [i]
-    lib.gs_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def _event_ms(fn, reps: int) -> float:
@@ -119,7 +106,7 @@ def variants(dev: torch.device) -> None:
     saved, first = (cuda_lib._lib, dict(dist.K1_TILES)), None
     try:
         for name, (so, _) in builds.items():
-            cuda_lib._lib = _bind(so)
+            cuda_lib._lib = cuda_lib.bind(so)
             dist.K1_TILES = {k: (wq * 4, wn * 8, _resident(wq, wn, st)) for k, (wq, wn, st)
                              in zip(("wide", "narrow16", "narrow8"), VARIANTS[name])}
             dist.k1_plan.cache_clear()

@@ -45,6 +45,8 @@ _RERANK_SEED = 0x243F6A88  # independent of the expansion hash
 _EXPAND_ROWS = 1024
 # bound on one query chunk's [Qc, N] score matrix (elements)
 _SCORE_ELEMS = 1 << 26
+# bound on one rerank launch's [Q, nb_cand] candidate ids (elements)
+_RERANK_ELEMS = 1 << 23
 # device memory kept free beside the representations (score buffers,
 # top-k and expansion temporaries)
 _HEADROOM_BYTES = 2 << 30
@@ -203,30 +205,37 @@ class MxuSearcher:
 
     def search_device(self, q: torch.Tensor, knbn: int):
         """q [Q, S] f32 or int32 on the searcher's device -> (distances
-        [Q, k] f32, ids [Q, k] int32), both on the device."""
+        [Q, k] f32, ids [Q, k] int32), both on the device.  Scores and
+        candidates are taken in chunks of _SCORE_ELEMS; the candidates of
+        the chunks are reranked by one K2 launch and one top-k over the
+        batch, up to _RERANK_ELEMS candidate ids a launch (each query's
+        distances and top-k are independent of the chunking)."""
         q = _as_i32(q, "MxuSearcher.search")
         knbn = min(knbn, self.n)
         chunk = max(32, _SCORE_ELEMS // _round_up(self.n, 8))
         dists = [torch.empty((0, knbn), dtype=torch.float32, device=self.device)]
         ids = [torch.empty((0, knbn), dtype=torch.int32, device=self.device)]
-        nb_cand = None if self.estimator_only else self._nb_cand(knbn)
-        for start in range(0, q.shape[0], chunk):
-            qc = q[start : start + chunk]
-            if self.estimator_only:
+        if self.estimator_only:
+            for start in range(0, q.shape[0], chunk):
                 # the pool itself: top-k by score, estimated distances
-                top, score = self._top_scores(qc, knbn)
+                top, score = self._top_scores(q[start : start + chunk], knbn)
                 dists.append(_distance(score, self.m * self.s))
                 ids.append(top.to(torch.int32))
-                continue
+            return torch.cat(dists), torch.cat(ids)
+        nb_cand = self._nb_cand(knbn)
+        batch = max(chunk, _RERANK_ELEMS // nb_cand // chunk * chunk)
+        for b0 in range(0, q.shape[0], batch):
+            qb = q[b0 : b0 + batch]
             # candidates in id order, so the stable top-k breaks distance
             # ties by lower id exactly as the exact sweep (bucketed_knn) does
-            cand, _ = torch.sort(self._top_scores(qc, nb_cand)[0], dim=1)
+            cand = torch.cat([torch.sort(self._top_scores(qb[start : start + chunk], nb_cand)[0],
+                                         dim=1)[0] for start in range(0, qb.shape[0], chunk)])
             cand = cand.to(torch.int32)
             if self.compact:
-                d = gather_hamming(self._rr, pack_hash16(qc, spad=self._spad, pad_val=1),
+                d = gather_hamming(self._rr, pack_hash16(qb, spad=self._spad, pad_val=1),
                                    cand, parts=2, s_true=self.s)
             else:
-                d = gather_hamming(self._rr, qc, cand)
+                d = gather_hamming(self._rr, qb, cand)
             dist, sel = topk_smallest(d, knbn)
             dists.append(dist)
             ids.append(cand.gather(1, sel))

@@ -208,3 +208,60 @@ def test_hnsw_on_card_matches_cpu(cuda_device):
     want = idx["cpu"].search(sigs[n:], 10, ef_search=128)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0].view(np.uint32), want[0].view(np.uint32))
+
+
+@pytest.mark.parametrize("form", list(tdist.K2_FORMS))
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+def test_k2_forms_match_plain_and_leave_workspaces_zero(cuda_device, parts, form):
+    """Each K2 form at each `parts`, bitwise against the plain version: a
+    row every query lists, R = 1 and Qc = 1, lanes % 4 != 0, a misaligned
+    database view, ids -1, N and 2^31 - 1, one and several lane segments,
+    query-major launches small enough to split their lanes; one launch
+    counted a call, and the K2 workspaces zero after every launch."""
+    gen = torch.Generator(device=cuda_device).manual_seed(20 + parts)
+    name = tdist._PARTS[parts]
+    for qc, r, n, lanes in ((1, 1, 5, 7), (1, 300, 50, 1024), (300, 1, 50, 1024), (64, 80, 40, 2053),
+                            (33, 40, 2000, 3000), (256, 64, 4000, 1024)):
+        db = torch.randint(-2**31, 2**31 - 1, (n, lanes), generator=gen, device=cuda_device,
+                           dtype=torch.int32)
+        if parts == 1:
+            db = db % 4  # many equal lanes
+        noise = torch.randint(-2**31, 2**31 - 1, (qc, lanes), generator=gen, device=cuda_device,
+                              dtype=torch.int32)
+        src = db[torch.randint(0, n, (qc,), generator=gen, device=cuda_device)]
+        keep = torch.rand((qc, lanes), generator=gen, device=cuda_device) < 0.6
+        q = torch.where(keep, src, src ^ (noise & 0x0F0F00FF)).contiguous()
+        ids = torch.randint(-2, n + 2, (qc, r), generator=gen, device=cuda_device, dtype=torch.int32)
+        ids[:, 0] = 0  # a row every query lists
+        ids[0, -1] = 2**31 - 1
+        ids[-1, -1] = n
+        big = torch.empty(n * lanes + 1, dtype=torch.int32, device=cuda_device)
+        misaligned = big[1:].view(n, lanes)  # 4 bytes past a 16-byte boundary
+        misaligned.copy_(db)
+        want = tdist.gather_hamming_plain(db, q, ids, parts=parts)
+        for view in (db, misaligned):
+            before = cuda_lib.launches[name]
+            got = tdist.gather_hamming(view, q, ids, parts=parts, form=form)
+            assert cuda_lib.launches[name] == before + 1
+            assert _same(got, want), (qc, r, n, lanes, form)
+            torch.cuda.synchronize()
+            for zeroed, _ in tdist._k2_ws.values():
+                assert int(zeroed.abs().sum()) == 0
+
+
+def test_mxu_searcher_one_k2_launch_over_score_chunks(cuda_device, monkeypatch):
+    """A batch of several score chunks is reranked by one K2 launch on the
+    card, and equals the CPU path."""
+    rng = np.random.default_rng(11)
+    n, s = 4200, 256
+    db = rng.random((n, s), dtype=np.float32)
+    q = db[rng.integers(0, n, 100)].copy()
+    q[:, :60] = rng.random((100, 60), dtype=np.float32)
+    monkeypatch.setattr(tmxu, "_SCORE_ELEMS", 32 * 4200)  # 32-query chunks
+    before = dict(cuda_lib.launches)
+    got = MxuSearcher(db, cuda_device).search(q, 10)
+    assert cuda_lib.launches["gather_hamming"] == before["gather_hamming"] + 1
+    assert cuda_lib.launches["int_mm"] == before["int_mm"] + 4
+    want = MxuSearcher(db, torch.device("cpu")).search(q, 10)
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[0].view(np.uint32), want[0].view(np.uint32))

@@ -15,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
+import gsearch_tpu.index.hnsw as jhnsw
 from gsearch_tpu.ops import distance as jdist
+from gsearch_tpu.ops import mxu as jmxu
 from gsearch_tpu_torch.ops import cuda_lib
 from gsearch_tpu_torch.ops import distance as tdist
+from gsearch_tpu_torch.ops import mxu as tmxu
 
 
 def _sigs(rng, shape, dtype):
@@ -207,3 +210,117 @@ def test_k1_plan_shapes():
         tdist.k1_plan(1, 3, 4, 10, 132, pairs=True)
     with pytest.raises(ValueError):
         tdist.k1_plan(1, 3, 3, 10, 132, pairs=True, tile="narrow8")
+
+
+# ---- K2's forms and its plan ----------------------------------------------------
+
+_PACKERS = {2: (jmxu._pack_hash16, tmxu.pack_hash16), 4: (jmxu._pack_hash8, tmxu.pack_hash8),
+            8: (jmxu._pack_hash4, tmxu.pack_hash4)}
+
+
+def _k2_case(rng, parts, qc, r, n):
+    """Port and reference inputs of one K2 case whose lanes pass one
+    segment of the row-grouped form: (db, q, s_true) as int32 tensors and
+    the reference's (db [N, 8, Sp/8], q [Qc, Sp])."""
+    if parts == 1:
+        s = 1100
+        db, q = _sigs(rng, (n, s), np.uint32), _sigs(rng, (qc, s), np.uint32)
+        db3, qj = _jax_gather_layout(db, q, s)
+        return _t(db), _t(q), s, db3, qj
+    jpack, tpack = _PACKERS[parts]
+    lanes = 2048
+    spad = lanes * parts
+    s_true = spad - 100  # padded fields never count equal
+    base = rng.integers(0, 1 << 30, size=(n, s_true)).astype(np.uint32)
+    q = base[rng.integers(0, n, qc)].copy()
+    q[:, : s_true // 3] = rng.integers(0, 1 << 30, size=(qc, s_true // 3))
+    qt, bt = torch.from_numpy(q.view(np.int32)), torch.from_numpy(base.view(np.int32))
+    db3 = jpack(jnp.asarray(base), spad=spad, pad_val=0)
+    qj = jpack(jnp.asarray(q), spad=spad, pad_val=1).reshape(qc, lanes)
+    return tpack(bt, spad=spad, pad_val=0), tpack(qt, spad=spad, pad_val=1), s_true, db3, qj
+
+
+@pytest.mark.parametrize("form", list(tdist.K2_FORMS))
+@pytest.mark.parametrize("parts", [1, 2, 4, 8])
+def test_gather_hamming_forms_vs_pallas_and_xla_rerank(rng, parts, form):
+    """K2 on the CPU with each form asked for (both take the plain
+    version there; the kernels are held to it on the card), every `parts`,
+    lanes past one segment of the row-grouped form: equal counts bit-exact
+    against the reference's Pallas kernel in interpret mode and its XLA
+    rerank, distances within one ulp; ids outside [0, N) +inf."""
+    qc, r, n = 8, 16, 40
+    db, q, s_true, db3, qj = _k2_case(rng, parts, qc, r, n)
+    ids = rng.integers(0, n, size=(qc, r)).astype(np.int32)
+    ids[:, r // 2:] = ids[:, : r // 2]  # repeated ids
+    ids[:, 0] = 3  # a row every query lists
+    before = dict(cuda_lib.launches)
+    got = tdist.gather_hamming(db, q, torch.from_numpy(ids), parts=parts, s_true=s_true, form=form)
+    assert cuda_lib.launches == before  # a CPU tensor takes the plain version
+    want = tdist.gather_hamming_plain(db, q, torch.from_numpy(ids), parts=parts, s_true=s_true)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want.numpy()))
+    eq = np.rint((1.0 - got.numpy().astype(np.float64)) * s_true)
+    pal = np.asarray(jdist.gather_hamming_pallas(db3, qj, jnp.asarray(ids), s_true=s_true,
+                                                 interpret=True, parts=parts))
+    np.testing.assert_array_equal(np.rint((1.0 - pal.astype(np.float64)) * s_true), eq)
+    np.testing.assert_allclose(got.numpy(), pal, rtol=0, atol=2.0**-23)
+    d_ref, i_ref = jhnsw._rerank_device(db3, qj, jnp.asarray(ids), jnp.int32(n), knbn=r,
+                                        s_true=s_true, use_pallas=False, parts=parts)
+    d_sorted, sel = tdist.topk_smallest(got, r)
+    np.testing.assert_array_equal(np.take_along_axis(ids, sel.numpy(), 1), np.asarray(i_ref))
+    np.testing.assert_allclose(d_sorted.numpy(), np.asarray(d_ref), rtol=0, atol=2.0**-23)
+    bad = torch.tensor([[-1, 0, n, 2**31 - 1]], dtype=torch.int32)
+    out = tdist.gather_hamming(db, q[:1].contiguous(), bad, parts=parts, s_true=s_true, form=form).numpy()
+    assert np.isinf(out[0, [0, 2, 3]]).all() and np.isfinite(out[0, 1])
+
+
+# (Qc, R, N, lanes) of the main path's K2 launches: the coarse route's
+# prefix rerank, the full tier, pass A of the bulk build, a beam hop of a
+# 1,024-query request and of a CLI request of 8 genomes, the flat index's
+# request of 8 genomes and of 1,024
+_K2_SHAPES = {"coarse": (1024, 2048, 262144, 1024), "full tier": (1024, 160, 262144, 12000),
+              "pass A": (4096, 384, 262144, 1024), "beam hop": (1024, 256, 262145, 1024),
+              "beam hop, 8": (8, 256, 262145, 1024), "flat, 8": (8, 80, 65536, 12000),
+              "flat, 1024": (1024, 80, 65536, 12000)}
+
+
+def test_k2_plan_shapes():
+    """The form by shape on an H100 (132 SMs): row-grouped where pairs
+    repeat rows (the coarse rerank, the full tier), query-major for the
+    small launches of a CLI request of a few genomes (a beam hop, the flat
+    rerank), whose lanes are cut into spans to fill the card."""
+    plan = {k: tdist.k2_plan(*v, 132) for k, v in _K2_SHAPES.items()}
+    assert plan["coarse"].form == "row" and plan["full tier"].form == "row"
+    assert plan["beam hop, 8"] == tdist.K2Plan("query", plan["beam hop, 8"].unique, 1)
+    assert plan["flat, 8"].form == "query" and plan["flat, 8"].splits == 12
+    assert all(p.splits == 1 for k, p in plan.items() if k != "flat, 8")
+    tdist.k2_plan.cache_clear()  # pure: the same plans computed afresh
+    assert {k: tdist.k2_plan(*v, 132) for k, v in _K2_SHAPES.items()} == plan
+    assert tdist.k2_plan(1024, 2048, 262144, 1024, 132, form="query").form == "query"
+    assert tdist.k2_plan(8, 80, 65536, 12000, 132, form="row") == tdist.K2Plan(
+        "row", plan["flat, 8"].unique, 1)
+    with pytest.raises(ValueError):
+        tdist.k2_plan(8, 80, 65536, 12000, 132, form="rows")
+    with pytest.raises(ValueError):
+        tdist.gather_hamming(torch.zeros((4, 8)), torch.zeros((2, 8)),
+                             torch.zeros((2, 3), dtype=torch.int32), form="tiles")
+
+
+@pytest.mark.parametrize("sms", [132, 114, 1])
+@pytest.mark.parametrize("qc,r,n,lanes", [*_K2_SHAPES.values(), (1, 1, 1, 1), (1, 1, 5, 3),
+                                          (3, 7, 2, 5000), (33, 80, 2000, 1201)])
+def test_k2_plan_spans_cover_the_lanes(qc, r, n, lanes, sms):
+    """The query-major form's spans cover a pair's lanes with at least
+    K2_SEG lanes each (the kernel rounds a span up to whole 16-byte rounds
+    of a warp) and fill one wave where the launch is small; the
+    row-grouped form is taken only past one wave of pairs, where rows
+    repeat."""
+    plan = tdist.k2_plan(qc, r, n, lanes, sms)
+    pairs, wave = qc * r, sms * tdist.K2_WAVE_PAIRS
+    assert 0 < plan.unique <= min(pairs, n) + 1e-6
+    if plan.form == "row":
+        assert pairs >= wave and pairs >= tdist.K2_REPEAT * plan.unique and plan.splits == 1
+        return
+    span = -(-lanes // plan.splits)
+    assert plan.splits == 1 or span >= tdist.K2_SEG * (plan.splits - 1) / plan.splits
+    assert (plan.splits - 1) * span < lanes <= plan.splits * span
+    assert plan.splits == 1 or pairs * (plan.splits - 1) < wave

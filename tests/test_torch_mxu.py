@@ -82,3 +82,47 @@ def test_mxu_distance_ties_ordered_by_id(rng):
     assert (np.diff(ex_d, axis=1) == 0).any()  # the case has ties
     np.testing.assert_array_equal(ids, ex_i)
     np.testing.assert_array_equal(d.view(np.uint32), ex_d.view(np.uint32))
+
+
+@pytest.mark.parametrize("rerank_cap", [None, 24 * 128])
+@pytest.mark.parametrize("tier", ["full", "compact"])
+def test_mxu_searcher_one_rerank_launch_over_the_chunks(rng, monkeypatch, tier, rerank_cap):
+    """With _SCORE_ELEMS small, a batch spans several score chunks: the
+    candidates of all chunks go through one K2 call and one top-k (or one
+    a rerank batch, with _RERANK_ELEMS small too), and the results equal
+    gsearch_tpu's MxuSearcher on the CPU: ids equal, distances bit-exact
+    (full tier) or within an ulp (compact tier, whose reference divides by
+    a constant through XLA's reciprocal)."""
+    n, s, k, nq = (4096, 256, 10, 45) if tier == "full" else (3000, 1024, 10, 45)
+    db = rng.random((n, s), dtype=np.float32)
+    q = rng.random((nq, s), dtype=np.float32)
+    # 12 planted neighbours a query at distinct distances, in distinct rows,
+    # so no query's top-k holds a tie
+    for i, rows in enumerate(rng.choice(n, size=(nq, 12), replace=False)):
+        for j, row in enumerate(rows):
+            db[row] = q[i]
+            pos = rng.choice(s, 3 + 5 * j, replace=False)
+            db[row, pos] = rng.random(len(pos), dtype=np.float32)
+    monkeypatch.setattr(tmxu, "_SCORE_ELEMS", 16 * n)  # chunks of 32 queries
+    if rerank_cap:
+        monkeypatch.setattr(tmxu, "_RERANK_ELEMS", rerank_cap)
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(a[2].shape)
+        return tdist.gather_hamming(*a, **kw)
+
+    monkeypatch.setattr(tmxu, "gather_hamming", counted)
+    got = tmxu.MxuSearcher(db, CPU, compact=tier == "compact")
+    d, ids = got.search(q, k)
+    nb_cand = got._nb_cand(k)
+    batch = max(32, (rerank_cap or tmxu._RERANK_ELEMS) // nb_cand // 32 * 32)
+    assert [c[0] for c in calls] == [min(batch, nq - b0) for b0 in range(0, nq, batch)]
+    assert len(calls) == (1 if rerank_cap is None else 2)
+    ref = jmxu.MxuSearcher(db, compact=tier == "compact", approx=False)
+    d_ref, i_ref = ref.search(q, k)
+    np.testing.assert_array_equal(ids, i_ref)
+    if tier == "full":
+        np.testing.assert_array_equal(d.view(np.uint32), d_ref.view(np.uint32))
+    else:
+        np.testing.assert_allclose(d, d_ref, rtol=0, atol=2.0**-23)
