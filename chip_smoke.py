@@ -55,6 +55,26 @@ CUDA card it exits non-zero before printing any result.
      more request by each route recorded: the coarse prefix rerank (one
      launch over the batch), the full, packed, packed8 and packed4 tiers,
      and the first hop of the beam.
+  algos. the other four sketching algorithms and amino-acid mode, at
+     s = 12,000 through the CLI: for each of prob, super, super2 and hll,
+     `tohnsw --block` of phase 4's corpus and `request` of its 8 queries
+     (every best hit is the planted genome); then a seeded corpus of 48
+     proteomes (.faa, 1-2 M residues, 8 clusters, 8 queries at 2%
+     substitutions) through `tohnsw --aa -k 7` with optdens and prob.  For
+     each build, the card's signatures of a genome above the 4 M block, one
+     with N runs and a slice through the piece path are held against the
+     port's CPU sketcher: bitwise (super, super2, optdens) or at most 1e-4
+     of the slots (prob, hll: a float64 log rounded to f32 on both sides),
+     the fraction printed; one timing line an algorithm.  K1 on the u32
+     rows of prob's database (NaN patterns, -0.0 and equal low halves
+     planted) and the u16 rows of hll's, widened, at 8 x 48 x 12,000,
+     bitwise against the plain version and equal to integer equality on the
+     host (K1 sites); prob's and hll's databases grown with seeded decoys
+     to 8,192 rows, so the CLI request goes through the sign-expansion
+     searcher and K2 on u32 and widened-u16 bits: the neighbours file is
+     byte-identical, ids and distances equal `brute_force_knn`'s, K2's call
+     recorded (K2 sites); `bindash` on 48 x 48 genomes at s = 12,000, its K1
+     call held against the plain version.
   K2 sites.  Each recorded call is re-run with its own arguments: every
      form bitwise against the plain version, timed under each form, the
      plan's and the plain version (CUDA events; device-only time from
@@ -64,7 +84,8 @@ The launch counters are zeroed just before each main-path run and read just
 after it: phases 4-5 (K1 in phase 4, K2 and the int8 matmul in phase 5);
 hnsw-build to hnsw-add (K2 parts=2 and K1's self pairs in the bulk build,
 K2 and the int8 matmul in the request, K1 and its self pairs in the add);
-tiers (K2 parts=4 and 8).  The line before the last
+tiers (K2 parts=4 and 8); algos (K1 by every build's request and by
+bindash, K2 and the int8 matmul by the grown databases).  The line before the last
 is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -94,6 +115,9 @@ FULL = {
     "k2p": (1024, 160, 262144),        # Qc, R, N of the packed tiers
     "hnsw_total": 262144, "families": 256, "species": 16,
     "tier_queries": 1024,
+    "algos": ("prob", "super", "super2", "hll"), "aa_algos": ("optdens", "prob"),
+    "aa_kmer": 7, "aa_lengths": (1_000_000, 2_000_000), "aa_record": 500,
+    "grown_total": 8192, "piece_log2": 16, "piece_len": 300_000,
 }
 # the tiers' lane counts at S = 12000 (hnsw._rerank_tier widths / parts)
 K2P_LANES = {2: 12288 // 2, 4: 12288 // 4, 8: 16384 // 8}
@@ -518,18 +542,10 @@ def phase_grown(dev, cfg, root, p4) -> dict:
 def phase_timings(dev, cfg, p4, p5) -> dict:
     """Sketch throughput on the parsed corpus and request qps at full N."""
     from gsearch_tpu_torch.index.serialize import load_index
-    from gsearch_tpu_torch.pipeline import database_sketcher, read_genomes
+    from gsearch_tpu_torch.pipeline import read_genomes
 
     genomes = read_genomes(p4["db_dir"])
-    sketcher = database_sketcher(p4["db"], device=dev)
-    sketcher.sketch_many(genomes[:2])
-    times = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        sketcher.sketch_many(genomes)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    sketch_s = sketch_seconds(dev, p4["db"], genomes, runs=2)
     mbases = sum(len(g) for g in genomes) / 1e6
 
     index = load_index(p5["db"], dev)
@@ -549,7 +565,7 @@ def phase_timings(dev, cfg, p4, p5) -> dict:
         index.search(q, cfg["knbn"])
     site = k2_site(dev, f"flat-65k, {nq}-query batch", rec.calls[0], rec.count)
     del rec
-    return {"sketch_mbases_s": mbases / min(times), "sketch_s": min(times), "mbases": mbases,
+    return {"sketch_mbases_s": mbases / sketch_s, "sketch_s": sketch_s, "mbases": mbases,
             "request_s": statistics.median(qtimes), "qps": nq / statistics.median(qtimes),
             "k2_site": site}
 
@@ -867,6 +883,375 @@ def phase_tiers(dev, cfg, pb, counts: dict) -> dict:
     return res
 
 
+AA_LETTERS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+# sketchers whose card and CPU signatures must agree bit for bit; the others
+# take a log (float64 rounded to f32 on both sides) and may differ in
+LOG_ALGOS, LOG_SLOT_FRACTION = ("prob", "hll"), 1e-4
+
+
+def write_aa_corpus(root: str, cfg) -> dict:
+    """Seeded proteomes: clusters of copies of a random root proteome at 3%
+    substitutions, written as records of `aa_record` residues, and one query
+    per cluster at 2% substitutions of a member.  Returns the directories
+    and {query file: source file}."""
+    rng = np.random.default_rng(SEED + 7)
+    db_dir, q_dir = os.path.join(root, "aa_db"), os.path.join(root, "aa_queries")
+    os.makedirs(db_dir)
+    os.makedirs(q_dir)
+
+    def substitute(codes, rate):
+        out = codes.copy()
+        hit = rng.random(out.size) < rate
+        out[hit] = (out[hit] + rng.integers(1, 20, int(hit.sum()), dtype=np.uint8)) % 20
+        return out
+
+    def write(path, name, codes):
+        rec = cfg["aa_record"]
+        with open(path, "wb") as f:
+            for i in range(0, len(codes), rec):
+                f.write(b">%s_p%d synthetic\n" % (name.encode(), i // rec))
+                f.write(AA_LETTERS[codes[i : i + rec]].tobytes())
+                f.write(b"\n")
+
+    lengths = np.linspace(*cfg["aa_lengths"], cfg["clusters"]).astype(int)
+    source = {}
+    for c, length in enumerate(lengths):
+        base = rng.integers(0, 20, int(length), dtype=np.uint8)
+        for m in range(cfg["per_cluster"]):
+            member = substitute(base, 0.03)
+            name = f"a{c}_m{m}"
+            write(os.path.join(db_dir, name + ".faa"), name, member)
+            if m == c % cfg["per_cluster"]:
+                write(os.path.join(q_dir, f"aq{c}.faa"), f"aq{c}", substitute(member, 0.02))
+                source[f"aq{c}.faa"] = name + ".faa"
+    return {"db_dir": db_dir, "q_dir": q_dir, "source": source,
+            "residues": int(lengths.sum()) * cfg["per_cluster"]}
+
+
+def best_hits(neighbours: str) -> dict:
+    """{query file: (distance, answer file)} of each query's first line."""
+    best = {}
+    with open(neighbours) as f:
+        for line in f:
+            if line.startswith("query_id:"):
+                field = line.rstrip("\n").split("\t")
+                best.setdefault(os.path.basename(field[1]),
+                                (float(field[3]), os.path.basename(field[5])))
+    return best
+
+
+def check_planted(what: str, neighbours: str, source: dict) -> tuple:
+    best = best_hits(neighbours)
+    for query, src in source.items():
+        if best.get(query, (None, None))[1] != src:
+            raise AssertionError(f"{what}: best hit of {query} is {best.get(query)}, expected {src}")
+    dists = [d for d, _ in best.values()]
+    return min(dists), max(dists)
+
+
+def card_vs_cpu(dev, algo: str, db: str, genomes: list, cfg) -> float:
+    """The card's signatures of `genomes` (whole, then the first one's start
+    through the piece path at a lowered block) against the port's CPU
+    sketcher: the largest fraction of a genome's slots that differ, held to
+    0 or LOG_SLOT_FRACTION."""
+    from gsearch_tpu_torch.pipeline import database_sketcher
+
+    def codes(g):
+        return g.to_codes() if hasattr(g, "to_codes") else g
+
+    piece = [codes(genomes[0])[: cfg["piece_len"]]]
+    sigs = {}
+    for d in (dev, torch.device("cpu")):
+        sk = database_sketcher(db, device=d)
+        whole = sk.sketch_many(genomes)
+        sk.MAX_BLOCK_LOG2 = cfg["piece_log2"]
+        sigs[d.type] = np.concatenate([whole, sk.sketch_many(piece)])
+    a, b = sigs[dev.type], sigs["cpu"]
+    if a.shape != (len(genomes) + 1, cfg["sketch"]) or a.dtype != b.dtype:
+        raise AssertionError(f"{algo}: card signatures {a.shape} {a.dtype}, CPU {b.shape} {b.dtype}")
+    if a.dtype == np.float32 and not np.isfinite(a).all():
+        raise AssertionError(f"{algo}: non-finite card signatures")
+    diff = a.view(np.uint32) != b.view(np.uint32) if a.dtype == np.float32 else a != b
+    frac = float(diff.mean(1).max())
+    if frac > (LOG_SLOT_FRACTION if algo in LOG_ALGOS else 0.0):
+        raise AssertionError(f"{algo}: card and CPU signatures differ in {frac} of a genome's slots")
+    if algo == "hll" and diff.any() and int(np.abs(a.astype(np.int64) - b.astype(np.int64))[diff].max()) != 1:
+        raise AssertionError("hll: a register differs from the CPU's by more than 1")
+    return frac
+
+
+def sketch_seconds(dev, db: str, genomes: list, runs: int = 1) -> float:
+    """The least wall time of `runs` calls of sketch_many over the parsed
+    genomes with the database's sketcher, after a warm-up on two of them."""
+    from gsearch_tpu_torch.pipeline import database_sketcher
+
+    sketcher = database_sketcher(db, device=dev)
+    sketcher.sketch_many(genomes[:2])
+    times = []
+    for _ in range(runs):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sketcher.sketch_many(genomes)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return min(times)
+
+
+def k1_site(dev, site: str, q_rows: np.ndarray, db_rows: np.ndarray, launches: int) -> dict:
+    """K1 on host signature rows of an unsigned type (u32 viewed, u16
+    widened): bitwise against the plain version, and its equal counts
+    against integer equality on the host; timed on the card."""
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops.distance import as_int32_rows, hamming_frac, hamming_frac_plain, k1_plan
+
+    saved = dict(cuda_lib.launches)
+    q, db = as_int32_rows(q_rows).to(dev), as_int32_rows(db_rows).to(dev)
+    got, want = hamming_frac(q, db), hamming_frac_plain(q, db)
+    if not same_bits(got, want):
+        raise AssertionError(f"K1 {site}: differs from its plain version, max abs err "
+                             f"{max_abs_err(got, want)}")
+    s = q.shape[1]
+    eq = (q_rows[:, None, :] == db_rows[None, :, :]).sum(-1)
+    if not np.array_equal(np.rint((1.0 - got.cpu().numpy().astype(np.float64)) * s), eq):
+        raise AssertionError(f"K1 {site}: equal counts differ from integer equality on the host")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
+    nq, n = q.shape[0], db.shape[0]
+    ent = {"site": site, "launches": launches, "shape": [nq, n, s], "dtype": str(db_rows.dtype),
+           "err": 0.0, "plan": k1_plan(1, nq, n, s, sms)._asdict()}
+    if dev.type == "cuda":
+        qf, dbf = q.float(), db.float()
+        ent.update(ms=event_ms(lambda: hamming_frac(q, db), 50),
+                   device_ms=device_ms(lambda: hamming_frac(q, db), 50, "eqcount_kernel"),
+                   plain_ms=event_ms(lambda: hamming_frac_plain(q, db), 20),
+                   library_ms=event_ms(lambda: torch.cdist(qf, dbf, p=0), 20),
+                   **k1_bound(1, nq, n, s, sms))
+    cuda_lib.launches.update(saved)
+    return ent
+
+
+def plant_patterns(rows: np.ndarray, rng) -> np.ndarray:
+    """A copy of u32 rows with the patterns a float compare gets wrong
+    planted at shared columns: NaN payloads (equal bits), +0 against -0
+    (unequal bits), and values with equal low halves."""
+    out = rows.copy()
+    cols = rng.choice(rows.shape[1], 64, replace=False)
+    pats = np.array([0x7FC00000, 0xFFC00001, 0x7F800001, 0x00000000, 0x80000000, 0x0001FFFF,
+                     0x0002FFFF, 0xFFFFFFFF], np.uint32)
+    out[:, cols] = pats[rng.integers(0, len(pats), size=(rows.shape[0], 64))]
+    return out
+
+
+def grown_request(dev, cfg, root, algo: str, db: str, q_dir: str, neighbours: str) -> dict:
+    """The database of `algo` grown to `grown_total` rows with seeded decoy
+    signatures of its own type (every bit pattern), requested through the
+    CLI: the sign-expansion searcher and K2 on u32 or widened-u16 bits.
+    The neighbours file equals the 48-genome one; ids and distances of the
+    searcher equal brute_force_knn's."""
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.index.serialize import load_index
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops.distance import as_int32_rows, brute_force_knn
+    from gsearch_tpu_torch.pipeline import dump_with_placeholders
+
+    index = load_index(db, dev)
+    dtype = index.sig_dtype
+    rng = np.random.default_rng(SEED + 11)
+    n_decoy = cfg["grown_total"] - index.nb_points
+    decoys = rng.integers(0, 1 << (8 * dtype.itemsize), size=(n_decoy, index.sketch_size),
+                          dtype=np.uint64).astype(dtype)
+    index.insert(decoys)
+    grown = os.path.join(root, f"db_{algo}_grown")
+    dump_with_placeholders(db, grown, index)
+    out = os.path.join(root, f"req_{algo}_grown")
+    cuda_lib.reset_launches()
+    with K2Recorder(keep=1) as rec:
+        rc = main(["request", "-b", grown, "-n", str(cfg["knbn"]), "-r", q_dir, "-o", out,
+                   "--device", dev.type])
+    counts = dict(cuda_lib.launches)
+    assert rc == 0, f"request of the grown {algo} database failed"
+    with open(neighbours) as a, open(os.path.join(out, "gsearch.neighbors.txt")) as b:
+        if a.read() != b.read():
+            raise AssertionError(f"{algo}: neighbours file at {cfg['grown_total']} rows differs "
+                                 "from the 48-genome one")
+    res = {"counts": counts, "dtype": str(dtype)}
+    if dev.type == "cuda":
+        if counts["gather_hamming"] == 0 or counts["int_mm"] == 0 or not rec.calls:
+            raise AssertionError(f"{algo}: the grown request did not go through K2 and the int8 "
+                                 f"matmul: {counts}")
+        res["k2_site"] = k2_site(dev, f"{algo} ({dtype}) database grown to {cfg['grown_total']}, "
+                                 "CLI request", rec.calls[0], rec.count)
+    del rec
+    # the searcher against the exact sweep, on the real genomes' rows with a
+    # seventh of their slots redrawn: the true neighbours are the cluster
+    # mates, far below the decoys (whose distances tie and are not compared)
+    sigs = index.get_sigs()
+    n_real, k = index.nb_points - n_decoy, cfg["per_cluster"]
+    q = sigs[:n_real].copy()
+    q[:, ::7] = decoys[:n_real, ::7]
+    d, ids = index.search(q, k)
+    want_d, want_i = brute_force_knn(as_int32_rows(q).to(dev), as_int32_rows(sigs).to(dev), k)
+    if not np.array_equal(d.view(np.uint32), want_d.cpu().numpy().view(np.uint32)) or not np.array_equal(
+            ids, want_i.cpu().numpy()):
+        raise AssertionError(f"{algo}: searcher ids or distances differ from brute_force_knn's")
+    if not (ids[:, 0] == np.arange(n_real)).all() or not (d[:, k - 1] < 0.99).all():
+        raise AssertionError(f"{algo}: a genome's neighbours are not itself and its cluster mates")
+    return res
+
+
+def phase_bindash(dev, cfg, root, p4) -> dict:
+    """`bindash` through the CLI on the corpus against itself: its K1 call
+    recorded and held against the plain version."""
+    import gsearch_tpu_torch.ops.distance as dist_mod
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.ops import cuda_lib
+
+    paths = sorted(os.path.join(p4["db_dir"], f) for f in os.listdir(p4["db_dir"]))
+    lst, out = os.path.join(root, "bindash_list.txt"), os.path.join(root, "bindash.tsv")
+    with open(lst, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    calls, real = [], dist_mod.hamming_frac
+
+    def recorder(q, db, **kw):
+        calls.append((q, db))
+        return real(q, db, **kw)
+
+    cuda_lib.reset_launches()
+    dist_mod.hamming_frac = recorder
+    try:
+        t0 = time.perf_counter()
+        rc = main(["bindash", "-q", lst, "-r", lst, "-k", str(cfg["kmer"]), "-s", str(cfg["sketch"]),
+                   "-o", out, "--device", dev.type])
+        t_run = time.perf_counter() - t0
+    finally:
+        dist_mod.hamming_frac = real
+    counts = dict(cuda_lib.launches)
+    assert rc == 0, "bindash failed"
+    if len(calls) != 1 or (dev.type == "cuda" and counts["hamming_frac"] != 1):
+        raise AssertionError(f"bindash: expected one K1 call, got {len(calls)} ({counts})")
+    dist = {}
+    with open(out) as f:
+        next(f)
+        for line in f:
+            a, b, d = line.rstrip("\n").split("\t")
+            dist[(os.path.basename(a), os.path.basename(b))] = float(d)
+    n = len(paths)
+    if len(dist) != n * n:
+        raise AssertionError(f"bindash wrote {len(dist)} pairs, expected {n * n}")
+    for (a, b), d in dist.items():
+        mates = a.split("_")[0] == b.split("_")[0]
+        if (a == b and d != 0.0) or (mates and not d < 0.06) or (not mates and not d > 0.2):
+            raise AssertionError(f"bindash: {a} x {b} at {d}")
+    q, db = calls[0]
+    site = k1_site(dev, f"bindash {n} x {n}", q.cpu().numpy().view(np.uint32),
+                   db.cpu().numpy().view(np.uint32), 1)
+    print(f"phase algos bindash {n} x {n} at s={cfg['sketch']}: {t_run:.1f} s CLI wall, cluster "
+          f"mates < 0.06, others > 0.2; its K1 call bitwise equal to the plain version")
+    return {"counts": counts, "k1_site": site, "run_s": t_run}
+
+
+def phase_algos(dev, cfg, root, p4, card: str) -> dict:
+    """The other sketching algorithms and amino-acid mode at full width,
+    through the CLI; K1 and K2 on their u32 and u16 signatures."""
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.pipeline import read_genomes
+
+    counts = {name: 0 for name in cuda_lib.launches}
+    res = {"builds": {}, "k1_sites": [], "k2_sites": []}
+
+    def build_and_request(tag, algo, db_dir, q_dir, source, kmer, aa):
+        """CLI tohnsw + request of one algorithm; counts read around it."""
+        db, out = os.path.join(root, f"db_{tag}"), os.path.join(root, f"req_{tag}")
+        extra = ["--aa"] if aa else []
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        rc = main(["tohnsw", "-d", db_dir, "-k", str(kmer), "-s", str(cfg["sketch"]), "-n", "32",
+                   "--ef", "200", "--algo", algo, "--block", *extra, "-o", db, "--device", dev.type])
+        t_build = time.perf_counter() - t0
+        assert rc == 0, f"tohnsw --algo {algo} failed"
+        t0 = time.perf_counter()
+        rc = main(["request", "-b", db, "-n", str(cfg["knbn"]), "-r", q_dir, "-o", out,
+                   "--device", dev.type])
+        t_request = time.perf_counter() - t0
+        assert rc == 0, f"request against the {tag} database failed"
+        got = dict(cuda_lib.launches)
+        if dev.type == "cuda" and got["hamming_frac"] == 0:
+            raise AssertionError(f"{tag}: the request never launched K1: {got}")
+        for name in counts:
+            counts[name] += got[name]
+        neighbours = os.path.join(out, "gsearch.neighbors.txt")
+        lo, hi = check_planted(tag, neighbours, source)
+        return {"db": db, "neighbours": neighbours, "build_s": t_build, "request_s": t_request,
+                "best_d": (lo, hi), "k1_launches": got["hamming_frac"]}
+
+    def report(tag, algo, ent, genomes, picks, unit):
+        ent["cpu_frac"] = card_vs_cpu(dev, algo, ent["db"], [genomes[i] for i in picks], cfg)
+        ent["rate"] = sum(len(g) for g in genomes) / sketch_seconds(dev, ent["db"], genomes)
+        held = (f"at most {ent['cpu_frac']:.2e} of a genome's slots differ from the CPU sketcher "
+                f"(bound {LOG_SLOT_FRACTION:.0e})" if algo in LOG_ALGOS
+                else "signatures bitwise equal to the CPU sketcher")
+        print(f"phase algos {tag}: every best hit is the planted genome (distances "
+              f"{ent['best_d'][0]:.4f}..{ent['best_d'][1]:.4f}); {held}")
+        print(f"  timing {tag} on {card}: sketch {ent['rate'] / 1e6:.1f} M{unit}/s, tohnsw "
+              f"{ent['build_s']:.2f} s, request of 8 {ent['request_s'] * 1e3:.0f} ms (CLI wall)")
+        res["builds"][tag] = ent
+
+    genomes = read_genomes(p4["db_dir"])
+    # the longest genome (past the 4 M block) and the shortest one with N runs
+    longest = int(np.argmax([len(g) for g in genomes]))
+    picks = [longest, cfg["per_cluster"] - 1]
+    for algo in cfg["algos"]:
+        ent = build_and_request(algo, algo, p4["db_dir"], p4["q_dir"], p4["source"], cfg["kmer"], False)
+        report(algo, algo, ent, genomes, picks, "bases")
+    del genomes
+
+    t0 = time.perf_counter()
+    aa = write_aa_corpus(root, cfg)
+    res["aa_write_s"] = time.perf_counter() - t0
+    proteomes = read_genomes(aa["db_dir"], is_aa=True)
+    for algo in cfg["aa_algos"]:
+        tag = f"aa-{algo}"
+        ent = build_and_request(tag, algo, aa["db_dir"], aa["q_dir"], aa["source"], cfg["aa_kmer"], True)
+        report(tag, algo, ent, proteomes, [len(proteomes) - 1, 0], "residues")
+    del proteomes
+
+    # K1 on u32 and widened u16 signatures at the request's shape
+    rng = np.random.default_rng(SEED + 13)
+    for algo in ("prob", "hll"):
+        sigs = np.load(os.path.join(res["builds"][algo]["db"], "index.sigs.npy"))
+        db_rows = plant_patterns(sigs, rng) if sigs.dtype == np.uint32 else sigs.copy()
+        q_rows = db_rows[rng.integers(0, len(db_rows), 8)].copy()
+        redraw = rng.random(q_rows.shape) < rng.random((8, 1))
+        q_rows[redraw] = db_rows[rng.integers(0, len(db_rows), 8)][redraw]
+        res["k1_sites"].append(k1_site(
+            dev, f"{algo} request, {sigs.dtype} rows" + (" widened" if sigs.dtype == np.uint16 else
+                                                         " with NaN patterns"),
+            q_rows, db_rows, res["builds"][algo]["k1_launches"]))
+    print("phase algos K1 on u32 rows (NaN patterns, -0.0, equal low halves) and widened u16 rows at "
+          f"8 x 48 x {cfg['sketch']}: bitwise equal to the plain version and to integer equality")
+
+    # K2 on u32 and widened u16 bits: the grown databases through the CLI
+    for algo in ("prob", "hll"):
+        ent = res["builds"][algo]
+        g = grown_request(dev, cfg, root, algo, ent["db"], p4["q_dir"], ent["neighbours"])
+        for name in counts:
+            counts[name] += g["counts"][name]
+        if "k2_site" in g:
+            res["k2_sites"].append(g["k2_site"])
+        print(f"phase algos {algo} database ({g['dtype']}) grown to {cfg['grown_total']} rows: "
+              "neighbours file byte-identical; searcher ids and distances equal brute_force_knn's")
+
+    b = phase_bindash(dev, cfg, root, p4)
+    for name in counts:
+        counts[name] += b["counts"][name]
+    res["k1_sites"].append(b["k1_site"])
+    res["bindash_s"] = b["run_s"]
+    res["counts"] = counts
+    return res
+
+
 def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     from gsearch_tpu_torch.ops import cuda_lib
 
@@ -922,7 +1307,12 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
              "request_s": pr["request_s"]}
     k2_sites = [p5["k2_site"], pb["k2_site"], *tiers["k2_sites"]]
     del pb
-    launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] for k in flat_counts}
+    torch.cuda.empty_cache()
+    algos = timed("phase algos", phase_algos, dev, cfg, root, p4, card)
+    print(f"main-path launches, algos: {algos['counts']}")
+    k2_sites += algos["k2_sites"]
+    launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] + algos["counts"][k]
+                for k in flat_counts}
 
     t = timed("phase 6", phase_timings, dev, cfg, p4, p5)
     k2_sites.insert(1, t["k2_site"])
@@ -960,6 +1350,11 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
                   f"({ent['unique_rows']} unique rows)")
         for ent in k2_sites:
             print_k2_site(ent)
+        for ent in algos["k1_sites"]:
+            print(f"  K1 {ent['site']}: {ent['shape']} ({ent['plan']['tile']}, {ent['plan']['splits']} "
+                  f"splits), {ent['launches']} launch(es) on the main path: kernel {ent['ms']:.4f} ms "
+                  f"(device only {ent['device_ms']} ms), plain {ent['plain_ms']:.4f} ms, cdist "
+                  f"{ent['library_ms']:.4f} ms, bound {ent['bound_ms']:.5f} ms ({ent['bound_by']})")
     stages = ", ".join(f"{k} {v:.2f} s" for k, v in graph["stages"].items())
     print(f"  graph {cfg['hnsw_total']} x {cfg['sketch']}: bulk build {graph['build_s']:.1f} s "
           f"({stages}); dump {graph['dump_s']:.1f} s; CLI request of 8 genomes "
@@ -985,7 +1380,7 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
                                        "load_512", "plan")}
     kernels = [
         entry("hamming_frac", "gsearch_tpu/ops/distance.py:69", k1["err"], k1, k1.get("library_ms"),
-              shape=list(cfg["k1"]), **k1_extra),
+              shape=list(cfg["k1"]), main_path=algos["k1_sites"], **k1_extra),
         entry("hamming_frac_self", "gsearch_tpu/ops/distance.py:69", k1["self"]["err"], k1["self"],
               k1["self"].get("library_ms"), shape=list(cfg["k1_batch"]),
               ms_both_triangles=k1["self"].get("ms_both_triangles")),

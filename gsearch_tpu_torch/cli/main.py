@@ -1,10 +1,12 @@
 """gsearch_tpu_torch command-line interface.
 
 The subcommands and flags of gsearch_tpu's CLI for the ported slice:
-tohnsw / add / request / reformat, plus `--device` (default cuda; asking
-for cuda without a card raises, the CPU is asked for with --device cpu).
-As in the reference, add/request take no algorithm flags: everything is
-reloaded from the database's parameters.json.
+tohnsw (all six sketching algorithms, DNA and `--aa`) / add / request /
+reformat, and the pairwise tools bindash / hypermash / superaai, forwarded
+to their own parsers; plus `--device` (default cuda; asking for cuda
+without a card raises, the CPU is asked for with --device cpu).  As in the
+reference, add/request take no algorithm flags: everything is reloaded
+from the database's parameters.json.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("-n", "--nbng", type=int, required=True, help="max neighbors (M)")
     t.add_argument("--ef", type=int, default=1600)
     t.add_argument("--scale_modify_f", type=float, default=1.0)
-    t.add_argument("--algo", default="optdens", help="optdens | revoptdens")
-    t.add_argument("--aa", action="store_true", help="amino-acid mode (not ported)")
+    t.add_argument("--algo", default="optdens",
+                   help="prob | super | super2 | hll | optdens | revoptdens")
+    t.add_argument("--aa", action="store_true", help="amino-acid mode")
     t.add_argument("--block", action="store_true",
                    help="sketch whole files as one block (genome mode)")
     t.add_argument("--index", default="auto", choices=["auto", "flat", "hnsw"])
@@ -70,7 +73,18 @@ def build_parser() -> argparse.ArgumentParser:
     f.add_argument("model", type=int, help="1=Poisson, 2=Binomial")
     f.add_argument("input_file")
     f.add_argument("output_file")
+
+    # companion tools, reachable here and as python -m gsearch_tpu_torch.cli.<tool>
+    for tool in TOOLS:
+        sub.add_parser(tool, add_help=False)
     return ap
+
+
+TOOLS = {
+    "bindash": "gsearch_tpu_torch.cli.bindash",
+    "hypermash": "gsearch_tpu_torch.cli.hypermash",
+    "superaai": "gsearch_tpu_torch.cli.superaai",
+}
 
 
 def _algo_name(name: str) -> str:
@@ -78,7 +92,12 @@ def _algo_name(name: str) -> str:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in TOOLS:  # forward a tool's arguments to its own parser
+        import importlib
+
+        return importlib.import_module(TOOLS[argv[0]]).main(argv[1:])
+    args = build_parser().parse_args(argv)
 
     if args.command == "reformat":
         from .reformat import reformat_file

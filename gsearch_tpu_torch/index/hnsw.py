@@ -1066,7 +1066,7 @@ class HnswIndex:
         """Exact distances of queries [Q, S] to the rows ids_h [Q, R] from
         the host signatures (the reference's numpy form), +inf past n."""
         n = self.nb_points
-        rows = sig_bits(self._sigs)[np.clip(ids_h, 0, n - 1)]  # [Q, R, S]
+        rows = sig_bits(self._sigs[np.clip(ids_h, 0, n - 1)])  # [Q, R, S] bits, u16 widened
         eq = (rows == sig_bits(queries)[:, None, :]).sum(-1)
         d = (1.0 - eq / np.float32(self.sketch_size)).astype(np.float32)
         d[ids_h >= n] = np.inf

@@ -1,6 +1,6 @@
 """The signature matrix of a database, `index.sigs.npy`, for both index kinds.
 
-The file is a plain C-order 2-D .npy [N, S] (f32 or u32 signatures), as
+The file is a plain C-order 2-D .npy [N, S] (f32, u32 or u16 signatures), as
 gsearch_tpu writes it.  The reader uses numpy's public header API (the
 reference's `io/npyio.py` calls `np.lib.format._read_array_header`, which
 newer numpy releases lack) and can read straight into a capacity buffer

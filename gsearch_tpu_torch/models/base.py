@@ -9,19 +9,28 @@ groups of at most BATCH_ELEMS bases, each genome's pieces are merged with
 device.  `sketch_submit` only enqueues device work; `sketch_finish` copies
 the signatures back.
 
-Signatures are bit-exact with gsearch_tpu because the port cuts genomes
-into exactly the rows the reference races (the packed race's windowed
-pre-reduce depends on the row partition):
-  - a genome of n <= max block bases is one row of block_length(n);
+The port cuts genomes into exactly the rows the reference races (the
+packed race's windowed pre-reduce and ProbMinHash's per-piece
+multiplicities depend on the row partition):
+  - a genome of n <= max block symbols is one row of block_length(n);
   - a longer genome is cut at starts 0, step, 2*step, ... with
-    step = max_block - (k - 1), rounded down to a multiple of 4 when the
+    step = max_block - (k - 1), rounded down to a multiple of 4 when a DNA
     genome arrives as PackedCodes (the reference slices the 2-bit form at
-    byte boundaries);
-  - the rows are max_block long, unless some piece holds more than
+    byte boundaries) and the sketcher is not MULTIPLICITY_SENSITIVE: such
+    a sketcher (ProbMinHash) unpacks first and cuts at exactly k - 1
+    overlap, since a duplicated boundary window would count twice;
+  - the rows are max_block long, unless some DNA piece holds more than
     _MAX_EXC invalid positions: then the reference takes its per-piece
-    fallback and every row is padded to its own block bucket.
+    fallback and every row is padded to its own block bucket (amino-acid
+    rows travel raw in the reference and never take it).
 Rows always travel as uint8 codes; the reference's 2-bit exception and
 bit-plane forms existed for its host-device relay.
+
+Integer-only sketchers (OptDens, RevOptDens, SuperMinHash, SuperMinHash2,
+HyperMinHash, FracMinHash) are bit-exact with gsearch_tpu.  ProbMinHash
+and SetSketch take an f32 logarithm, which differs by an ulp between back
+ends (ops/hash.py `log_f32`): their signatures agree with gsearch_tpu's
+in all but a few slots in ten thousand.
 """
 
 from __future__ import annotations
@@ -33,17 +42,20 @@ import torch
 
 from ..core.params import DataType, SeqSketcherParams, SketchAlgo
 from ..io.codec import PackedCodes
-from ..ops.kmer import canonical_dna_windows
-from ..ops.race import RaceResult, bucket_min_packed, combine_race
+from ..ops.hash import mix32
+from ..ops.kmer import AA_BITS, canonical_dna_windows, kmer_windows
+from ..ops.race import (RaceResult, bucket_min, bucket_min_packed, bucket_min_packed_payload,
+                        combine_race, sketch_fingerprint)
 
 _MIN_BLOCK_LOG2 = 14
 _MAX_BLOCK_LOG2 = 22
 _BLOCK_STEP_LOG2 = 1
 
-#: bases raced in one launch group (rows x block length).  One budget for
+#: symbols raced in one launch group (rows x block length).  One budget for
 #: CUDA: a group's temporaries are a dozen or so int64 arrays of this many
-#: elements, a small share of an 80 GB card, and each elementwise launch
-#: still covers 32M elements.
+#: elements (times the darts a window: 3 for ProbMinHash, whose group of
+#: four 2^23 rows holds ~12 x 3 x 2^25 x 8 = 9.7 GB), a small share of an
+#: 80 GB card, and each elementwise launch still covers 32M elements.
 BATCH_ELEMS = 1 << 25
 
 #: invalid positions a piece may hold in the reference's exception upload
@@ -85,21 +97,26 @@ class SketcherBase:
     """Shared machinery; subclasses define the darts and the finalize."""
 
     SIG_DTYPE = np.float32
-    # payload-free algorithms race on packed (key | slot) words
+    # payload-free algorithms race on packed (key | slot) words;
+    # payload-carrying ones can opt into the quantized packed-payload race
     USE_PACKED_RACE = False
+    USE_PACKED_PAYLOAD_RACE = False
+    # True when the sketch depends on k-mer multiplicity (ProbMinHash): a
+    # long PackedCodes genome is then unpacked and cut with no 4-alignment
+    MULTIPLICITY_SENSITIVE = False
     # longest contiguous row before a genome is cut into pieces
     MAX_BLOCK_LOG2 = _MAX_BLOCK_LOG2
 
     def __init__(self, params: SeqSketcherParams, seed: int = 0x5EED, *,
                  device: torch.device):
-        if params.data_t == DataType.AA:
-            raise NotImplementedError(
-                "AA mode is not ported yet (ROADMAP.md: remaining sketchers and AA mode)")
         self.params = params
         self.k = params.kmer_size
         self.nb_slots = params.sketch_size
         self.seed = seed
         self.device = torch.device(device)
+        self.is_aa = params.data_t == DataType.AA
+        if self.is_aa and params.kmer_size > 12:
+            raise ValueError("AA kmer_size must be <= 12 (reference: aasketch.rs:464)")
 
     # ---- subclass interface -------------------------------------------------
 
@@ -111,15 +128,31 @@ class SketcherBase:
         """RaceResult [..., S] -> signatures [..., S]."""
         raise NotImplementedError
 
+    def _filler(self, race: RaceResult, seed: int) -> torch.Tensor:
+        """u32 values for empty slots that depend on the genome (its least
+        key) and the slot, so two sparse genomes never agree on slots both
+        left empty; `seed` is the algorithm's."""
+        idx = torch.arange(self.nb_slots, dtype=torch.int64, device=race.key.device)
+        return mix32(idx ^ sketch_fingerprint(race), self.seed ^ seed)
+
     # ---- device work ----------------------------------------------------------
+
+    def _windows(self, codes: torch.Tensor):
+        if self.is_aa:
+            return kmer_windows(codes, self.k, AA_BITS)
+        return canonical_dna_windows(codes, self.k)
+
+    def _race(self, slots, keys, payload, dvalid) -> RaceResult:
+        if self.USE_PACKED_RACE and payload is None:
+            return bucket_min_packed(slots, keys, self.nb_slots, valid=dvalid)
+        if self.USE_PACKED_PAYLOAD_RACE and payload is not None:
+            return bucket_min_packed_payload(slots, keys, payload, self.nb_slots, valid=dvalid)
+        return bucket_min(slots, keys, self.nb_slots, payload=payload, valid=dvalid)
 
     def _race_rows(self, codes: torch.Tensor) -> RaceResult:
         """uint8 code rows [b, nb] on the device -> one race per row."""
-        hi, lo, valid = canonical_dna_windows(codes, self.k)
-        slots, keys, payload, dvalid = self._darts(hi, lo, valid)
-        if not (self.USE_PACKED_RACE and payload is None):
-            raise NotImplementedError("the sort race with payload is not ported yet (ROADMAP.md)")
-        return bucket_min_packed(slots, keys, self.nb_slots, valid=dvalid)
+        hi, lo, valid = self._windows(codes)
+        return self._race(*self._darts(hi, lo, valid))
 
     def _pieces(self, codes) -> List[Tuple[np.ndarray, int]]:
         """The reference's row partition of one genome: [(codes, row length)]."""
@@ -128,6 +161,10 @@ class SketcherBase:
         if n <= max_block:
             return [(_as_codes(codes), block_length(n, self.MAX_BLOCK_LOG2))]
         step = max_block - (self.k - 1)
+        if self.is_aa or self.MULTIPLICITY_SENSITIVE:
+            codes = _as_codes(codes)
+        if self.is_aa:
+            return [(codes[st : st + max_block], max_block) for st in range(0, n, step)]
         if isinstance(codes, PackedCodes):
             step -= step % 4
             packed = [codes.piece(st, max_block) for st in range(0, n, step)]
@@ -192,15 +229,26 @@ class SketcherBase:
             merged = combine_race(RaceResult(acc.found[g], acc.key[g], acc.payload[g]),
                                   RaceResult(found[r], key[r], payload[r]))
             acc.found[g], acc.key[g], acc.payload[g] = merged
-        ticket.sigs = self._finalize_race(acc)
+        ticket.sigs = _host_form(self._finalize_race(acc), np.dtype(self.SIG_DTYPE))
         return ticket
 
     def sketch_finish(self, ticket: SketchTicket) -> np.ndarray:
         """Copy the ticket's signatures to the host (once)."""
         if ticket.sigs is not None:
-            ticket.out[:] = ticket.sigs.cpu().numpy()
+            ticket.out[:] = ticket.sigs.cpu().numpy().view(ticket.out.dtype)
             ticket.sigs = None
         return ticket.out
+
+
+def _host_form(sigs: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
+    """Finalized signatures in the width they cross to the host in: f32 as
+    it is; a u32 / u16 carrier (int64 holding the unsigned value) as the
+    int32 / int16 with the same bits, which the host views as unsigned."""
+    if dtype == np.float32:
+        return sigs
+    bits = 8 * dtype.itemsize
+    signed = torch.where(sigs >= 1 << (bits - 1), sigs - (1 << bits), sigs)
+    return signed.to(torch.int32 if bits == 32 else torch.int16)
 
 
 def make_sketcher(params: SeqSketcherParams, seed: int = 0x5EED, *,
@@ -208,10 +256,16 @@ def make_sketcher(params: SeqSketcherParams, seed: int = 0x5EED, *,
     """Algorithm dispatch (the reference's models.make_sketcher).  `device`
     has no default: the caller names the card or the CPU."""
     from .optdens import OptDensSketcher, RevOptDensSketcher
+    from .probminhash import ProbMinHashSketcher
+    from .setsketch import SetSketchSketcher
+    from .superminhash import SuperMinHash2Sketcher, SuperMinHashSketcher
 
-    table = {SketchAlgo.OPTDENS: OptDensSketcher, SketchAlgo.REVOPTDENS: RevOptDensSketcher}
-    if params.algo not in table:
-        raise NotImplementedError(
-            f"sketching algorithm {params.algo.value} is not ported yet "
-            "(ROADMAP.md: ProbMinHash, then the remaining sketchers)")
+    table = {
+        SketchAlgo.OPTDENS: OptDensSketcher,
+        SketchAlgo.REVOPTDENS: RevOptDensSketcher,
+        SketchAlgo.SUPER: SuperMinHashSketcher,
+        SketchAlgo.SUPER2: SuperMinHash2Sketcher,
+        SketchAlgo.PROB3A: ProbMinHashSketcher,
+        SketchAlgo.HLL: SetSketchSketcher,
+    }
     return table[params.algo](params, seed=seed, device=device)

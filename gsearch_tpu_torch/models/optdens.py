@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..ops.hash import mix2, mix32, uniform01
-from ..ops.race import RaceResult, sketch_fingerprint
+from ..ops.race import RaceResult
 from .base import SketcherBase
 
 _SLOT_SEED = 0x0BADF00D
@@ -58,8 +58,7 @@ class OptDensSketcher(SketcherBase):
             still_empty = still_empty & ~tgt_found
         # near-empty sketch: a genome-dependent filler, so two sparse genomes
         # never agree on commonly-empty slots
-        filler = mix32(idx ^ sketch_fingerprint(race), self.seed ^ 0xDEADBEEF)
-        return torch.where(still_empty, filler, out_key)
+        return torch.where(still_empty, self._filler(race, 0xDEADBEEF), out_key)
 
     def _finalize_race(self, race: RaceResult) -> torch.Tensor:
         return uniform01(self._densify(race))
@@ -82,5 +81,4 @@ class RevOptDensSketcher(OptDensSketcher):
             src_found = race.found[..., src]
             out_key = torch.where(still_empty & src_found, key[..., src], out_key)
             still_empty = still_empty & ~src_found
-        filler = mix32(idx ^ sketch_fingerprint(race), self.seed ^ 0xDEADBEEF)
-        return torch.where(still_empty, filler, out_key)
+        return torch.where(still_empty, self._filler(race, 0xDEADBEEF), out_key)

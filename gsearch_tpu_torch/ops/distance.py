@@ -1,8 +1,8 @@
 """Sketch distance: the Hamming fraction over signature vectors.
 
 Counterpart of gsearch_tpu/ops/distance.py.  Slots are compared as 32-bit
-patterns (f32 signatures through an int32 view, equality needs no unsigned
-arithmetic) and distance = 1 - eq / S in f32, the formula of the reference's
+patterns (f32 and u32 signatures through an int32 view, u16 registers
+widened by value; equality needs no unsigned arithmetic) and distance = 1 - eq / S in f32, the formula of the reference's
 `hamming_frac_xla` and of its Pallas kernel's finish.
 
 Two kernels, each a wrapper beside its plain torch version:
@@ -54,24 +54,35 @@ def _distance(eq: torch.Tensor, s: int) -> torch.Tensor:
 
 
 def sig_bits(sigs: np.ndarray) -> np.ndarray:
-    """Host signature rows (numpy f32, u32 or i32) as an int32 view of
-    their bit patterns, the form both kernels compare (no copy)."""
+    """Host signature rows (numpy f32, i32, u32 or u16) as int32 bit
+    patterns, the form both kernels compare.  32-bit types are viewed (no
+    copy, no value conversion: u32 signatures hold arbitrary patterns, NaN
+    payloads and -0.0 among them); u16 registers are widened by value
+    (zero-extended, a copy), as the reference widens them for its kernel."""
+    if sigs.dtype == np.uint16:
+        return sigs.astype(np.uint32).view(np.int32)
     if sigs.dtype not in (np.float32, np.uint32, np.int32):
-        raise TypeError(f"unsupported signature dtype {sigs.dtype}")
+        raise TypeError(f"unsupported signature dtype {sigs.dtype}: "
+                        "expected float32, int32, uint32 or uint16")
     return sigs.view(np.int32)
 
 
 def as_int32_rows(sigs: np.ndarray) -> torch.Tensor:
-    """`sig_bits` of host rows as a contiguous int32 tensor."""
+    """`sig_bits` of host rows (f32, i32, u32 or u16) as a contiguous int32
+    tensor."""
     return torch.from_numpy(np.ascontiguousarray(sig_bits(sigs)))
 
 
 def _as_i32(x: torch.Tensor, what: str) -> torch.Tensor:
-    if x.dtype == torch.float32:
-        return x.view(torch.int32)
+    """Signature rows as int32 bit patterns: f32 and u32 viewed, u16
+    widened by value."""
     if x.dtype == torch.int32:
         return x
-    raise TypeError(f"{what}: signatures must be float32 or int32, got {x.dtype}")
+    if x.dtype in (torch.float32, torch.uint32):
+        return x.view(torch.int32)
+    if x.dtype == torch.uint16:
+        return x.to(torch.int32)
+    raise TypeError(f"{what}: signatures must be float32, int32, uint32 or uint16, got {x.dtype}")
 
 
 def _check_rows(q: torch.Tensor, db: torch.Tensor) -> int:

@@ -53,7 +53,8 @@ _HEADROOM_BYTES = 2 << 30
 
 
 def expand_signs(sigs: torch.Tensor, m: int = 4) -> torch.Tensor:
-    """[N, S] signatures (f32 or int32) -> [N, m*S] int8 in {-1, +1}."""
+    """[N, S] signatures (f32 by bit pattern, or int32 bits) -> [N, m*S]
+    int8 in {-1, +1}."""
     h = mix32(as_u32(sigs), _EXPAND_SEED)
     n, s = sigs.shape
     out = torch.empty((n, s, m), dtype=torch.int8, device=sigs.device)
@@ -131,8 +132,8 @@ class MxuSearcher:
     def __init__(self, sigs, device: torch.device, m: int = 4, rerank_factor: int = 8,
                  compact: bool | None = None, nb_cand: int | None = None,
                  estimator_only: bool = False):
-        """sigs: [N, S] host numpy (f32, u32 or i32) or a torch tensor (f32
-        or int32, e.g. already on the device)."""
+        """sigs: [N, S] host numpy (f32, i32, u32, or u16 widened by value)
+        or a torch tensor of those types (e.g. already on the device)."""
         rows = as_int32_rows(sigs) if isinstance(sigs, np.ndarray) else _as_i32(sigs, "MxuSearcher")
         self.n, self.s = rows.shape
         self.device = device

@@ -1,8 +1,9 @@
 """Orchestration pipelines: build (tohnsw), add, and request.
 
 Counterpart of gsearch_tpu/pipeline.py on one torch device: host ingest
-(walk + parse on a producer thread, parallel parse workers) -> device
-sketching -> flat or graph index -> dump, and the request path that reloads
+(walk + parse on a producer thread, parallel parse workers; DNA files, or
+protein files in amino-acid mode) -> device sketching by any of the six
+algorithms -> flat or graph index -> dump, and the request path that reloads
 a database, sketches the queries and writes gsearch.neighbors.txt.  `add`
 converts a flat database that grows past `flat_auto_limit` to the graph
 index, as the reference does.  Mesh sharding is not ported and is rejected.
@@ -254,10 +255,11 @@ def database_sketcher(db_dir: str, *, device: torch.device):
     return make_sketcher(ProcessingParams.reload_json(db_dir).sketch, device=device)
 
 
-def read_genomes(genome_dir: str) -> list:
-    """Each DNA FASTA file under genome_dir as one genome (its records
-    concatenated, block mode's unit), in walk order."""
-    return [concat_file_codes_packed(p)[0] for p in walk_fasta_dir(genome_dir)]
+def read_genomes(genome_dir: str, is_aa: bool = False) -> list:
+    """Each FASTA file under genome_dir (DNA, or protein with is_aa) as one
+    genome (its records concatenated, block mode's unit), in walk order."""
+    return [concat_file_codes_packed(p, is_aa=is_aa)[0]
+            for p in walk_fasta_dir(genome_dir, is_aa=is_aa)]
 
 
 def empty_index_like(db_dir: str, kind: str, *, device: torch.device):

@@ -265,3 +265,46 @@ def test_mxu_searcher_one_k2_launch_over_score_chunks(cuda_device, monkeypatch):
     want = MxuSearcher(db, torch.device("cpu")).search(q, 10)
     np.testing.assert_array_equal(got[1], want[1])
     np.testing.assert_array_equal(got[0].view(np.uint32), want[0].view(np.uint32))
+
+
+@pytest.mark.parametrize("algo,data_t,k", [("SUPER", "DNA", 16), ("SUPER2", "DNA", 16), ("PROB3A", "DNA", 16),
+                                           ("HLL", "DNA", 16), ("OPTDENS", "AA", 7), ("PROB3A", "AA", 7)])
+def test_every_sketcher_on_card_matches_cpu(cuda_device, algo, data_t, k):
+    """The sort race, the exact scatter race and amino-acid windows on the
+    card against the CPU path: bitwise for the integer-only sketchers; prob
+    and hll take a float64 log rounded to f32 on both, so at most one slot
+    of a genome may differ (none expected)."""
+    rng = np.random.default_rng(13)
+    alpha = 4 if data_t == "DNA" else 20
+    genomes = [rng.integers(0, alpha, n).astype(np.uint8) for n in (9, 12_000, 70_001)]
+    genomes[2][1000:2500] = 255
+    genomes.append(np.concatenate([genomes[1]] * 3))
+    params = SeqSketcherParams(kmer_size=k, sketch_size=1024, algo=algo, data_t=data_t)
+    sigs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        sk = make_sketcher(params, device=dev)
+        sk.MAX_BLOCK_LOG2 = 14
+        sigs.append(sk.sketch_many(genomes))
+    assert sigs[0].dtype == sigs[1].dtype
+    diff = sigs[0].view(np.uint32) != sigs[1].view(np.uint32) if sigs[0].dtype == np.float32 else sigs[0] != sigs[1]
+    assert diff.sum(1).max() <= (1 if algo in ("PROB3A", "HLL") else 0)
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint16])
+def test_kernels_on_unsigned_signatures(cuda_device, dtype):
+    """K1 and K2 on u32 rows holding NaN patterns and -0.0 (viewed) and on
+    u16 registers (widened by value): bitwise the plain version, equal
+    counts equal to integer equality on the host."""
+    rng = np.random.default_rng(17)
+    vals = (np.array([0, 1, 0x0100, 0x0101, 0x8000, 0xFFFF], np.uint16) if dtype == np.uint16 else
+            np.array([0x7FC00000, 0xFFC00001, 0, 0x80000000, 0x0001FFFF, 0x0002FFFF], np.uint32))
+    db = vals[rng.integers(0, len(vals), size=(300, 1203))]
+    q = vals[rng.integers(0, len(vals), size=(9, 1203))]
+    tq, tdb = tdist.as_int32_rows(q).to(cuda_device), tdist.as_int32_rows(db).to(cuda_device)
+    got = tdist.hamming_frac(tq, tdb)
+    assert _same(got, tdist.hamming_frac_plain(tq, tdb))
+    eq = (q[:, None, :] == db[None, :, :]).sum(-1)
+    np.testing.assert_array_equal(np.rint((1.0 - got.cpu().numpy().astype(np.float64)) * 1203), eq)
+    ids = torch.from_numpy(rng.integers(0, 300, size=(9, 40)).astype(np.int32)).to(cuda_device)
+    for form in tdist.K2_FORMS:
+        assert _same(tdist.gather_hamming(tdb, tq, ids, form=form), tdist.gather_hamming_plain(tdb, tq, ids))

@@ -324,3 +324,100 @@ def test_k2_plan_spans_cover_the_lanes(qc, r, n, lanes, sms):
     assert plan.splits == 1 or span >= tdist.K2_SEG * (plan.splits - 1) / plan.splits
     assert (plan.splits - 1) * span < lanes <= plan.splits * span
     assert plan.splits == 1 or pairs * (plan.splits - 1) < wave
+
+
+# ---- u32 and u16 signatures: bits viewed, registers widened by value ---------------
+
+def _hard_rows(rng, n, s, dtype):
+    """Rows of few distinct values (many equal slots) among the patterns a
+    float compare or a pairwise reinterpretation would get wrong: NaN
+    payloads (equal bits, unequal as floats), +0 / -0 (unequal bits, equal
+    as floats), values past 2^31, and u16 registers with equal low bytes."""
+    if dtype == np.uint16:
+        vals = np.array([0, 1, 0x0100, 0x0101, 0x8000, 0xFFFF, 0x00FF, 0xFF00], np.uint16)
+    else:
+        vals = np.array([0x7FC00000, 0x7FC00001, 0xFFC00000, 0x00000000, 0x80000000,
+                         0x0001FFFF, 0x0002FFFF, 0xFFFFFFFF], np.uint32)
+    return vals[rng.integers(0, len(vals), size=(n, s))]
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint16])
+def test_k1_k2_knn_on_u32_and_u16_rows(rng, dtype):
+    n, nq, s = 120, 7, 96
+    db = _hard_rows(rng, n, s, dtype)
+    q = db[rng.integers(0, n, nq)].copy()
+    q[:, : s // 3] = _hard_rows(rng, nq, s // 3, dtype)
+    tq, tdb = tdist.as_int32_rows(q), tdist.as_int32_rows(db)
+    assert tdb.dtype == torch.int32 and tdb.shape == (n, s)  # u16 widened, not paired
+    np.testing.assert_array_equal(tdb.numpy().view(np.uint32), db.astype(np.uint32))
+    eq = (q[:, None, :] == db[None, :, :]).sum(-1)  # integer equality: the truth
+    got = tdist.hamming_frac(tq, tdb).numpy()
+    np.testing.assert_array_equal(np.rint((1.0 - got.astype(np.float64)) * s), eq)
+    _assert_distances(got, jdist.hamming_frac_xla(jnp.asarray(q), jnp.asarray(db)), s)
+    pal = jdist.hamming_frac_pallas(jnp.asarray(q), jnp.asarray(db), tq=8, tn=16, sb=128,
+                                    inner=64, interpret=True)
+    _assert_distances(got, pal, s)
+    # a torch tensor of the unsigned type is taken as the numpy rows are
+    np.testing.assert_array_equal(
+        _bits(tdist.hamming_frac(torch.from_numpy(q), torch.from_numpy(db)).numpy()), _bits(got))
+    ids = rng.integers(0, n, size=(nq, 10)).astype(np.int32)
+    g = tdist.gather_hamming(tdb, tq, torch.from_numpy(ids)).numpy()
+    np.testing.assert_array_equal(np.rint((1.0 - g.astype(np.float64)) * s),
+                                  np.take_along_axis(eq, ids.astype(np.int64), 1))
+    d_ref, i_ref = jdist.brute_force_knn(jnp.asarray(q), jnp.asarray(db), 9, impl="xla")
+    d, i = tdist.brute_force_knn(tq, tdb, 9)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    _assert_distances(d.numpy(), d_ref, s)
+    d2, i2 = tdist.bucketed_knn(tq, tdb, 9)
+    d2_ref, i2_ref = jdist.bucketed_knn(q, db, 9)
+    np.testing.assert_array_equal(i2, i2_ref)
+    _assert_distances(d2, d2_ref, s)
+
+
+def test_sig_bits_names_the_accepted_types():
+    for bad in (np.zeros((2, 4), np.float64), np.zeros((2, 4), np.uint8), np.zeros((2, 4), np.int64)):
+        with pytest.raises(TypeError, match="float32, int32, uint32 or uint16"):
+            tdist.sig_bits(bad)
+    with pytest.raises(TypeError, match="float32, int32, uint32 or uint16"):
+        tdist.hamming_frac(torch.zeros((2, 8), dtype=torch.int16), torch.zeros((2, 8), dtype=torch.int16))
+    f = np.array([[0.0, -0.0, np.nan]], np.float32)
+    assert tdist.sig_bits(f).base is f  # 32-bit types are viewed, not converted
+    np.testing.assert_array_equal(tdist.sig_bits(f).view(np.uint32), f.view(np.uint32))
+
+
+@pytest.mark.parametrize("dtype", [np.uint32, np.uint16])
+def test_searcher_and_graph_on_u32_and_u16_rows(rng, dtype):
+    """MxuSearcher and HnswIndex (beam build and search) on rows of the
+    hard patterns, clustered so neighbours exist: gsearch_tpu's ids and
+    distances."""
+    import gsearch_tpu_torch.index.hnsw as thnsw
+
+    n, s, k = 4200, 64, 8
+    centers = _hard_rows(rng, 40, s, dtype)
+    db = centers[np.arange(n) % 40].copy()
+    redraw = rng.random((n, s)) < rng.uniform(0.05, 0.6, size=(n, 1))
+    db[redraw] = _hard_rows(rng, n, s, dtype)[redraw]
+    q = db[rng.integers(0, n, 12)].copy()
+    q[:, :5] = _hard_rows(rng, 12, 5, dtype)
+    cpu = torch.device("cpu")
+    got_d, got_i = tmxu.MxuSearcher(db, cpu).search(q, k)
+    ex_d, ex_i = tdist.bucketed_knn(tdist.as_int32_rows(q), tdist.as_int32_rows(db), k)
+    np.testing.assert_array_equal(got_d.view(np.uint32), ex_d.view(np.uint32))
+    want_d, _ = jmxu.MxuSearcher(db, m=4, rerank_factor=8, approx=False).search(q, k)
+    np.testing.assert_array_equal(got_d.view(np.uint32), want_d.view(np.uint32))
+    np.testing.assert_array_equal(np.asarray(jmxu.expand_signs(jnp.asarray(db[:50].astype(np.uint32)), m=4)),
+                                  tmxu.expand_signs(tdist.as_int32_rows(db[:50]), 4).numpy())
+
+    kw = dict(sketch_size=s, sig_dtype=dtype, max_nb_conn=8, ef_construction=32)
+    ref = jhnsw.HnswIndex(**kw)
+    ref.insert(db[:1500], batch_size=512, bulk=False)
+    got = thnsw.HnswIndex(**kw, device=cpu)
+    got.insert(db[:1500], batch_size=512, bulk=False)
+    for name in ("_nbrs", "_nbr_d", "_entry_ids", "_pinned", "_sigs"):
+        want, have = getattr(ref, name), getattr(got, name)
+        assert have.dtype == want.dtype, name
+        np.testing.assert_array_equal(have[: len(want)] if name == "_sigs" else have, want, err_msg=name)
+    d_ref, i_ref = ref.search(q, knbn=5, ef_search=64)
+    d, i = got.search(q, knbn=5, ef_search=64)
+    np.testing.assert_array_equal(i, i_ref)
+    np.testing.assert_allclose(d, d_ref, rtol=0, atol=2.0**-23)

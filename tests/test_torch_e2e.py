@@ -3,7 +3,11 @@ mode) through both CLIs, with the flat and the graph (`--index hnsw`)
 index: identical signatures, graphs, neighbours files and ANI tables, each
 package requesting the other's database; an `add` that migrates a flat
 database to the graph; the port's CLI run as `python -m gsearch_tpu_torch
-... --device cpu` imports no JAX."""
+... --device cpu` imports no JAX.  Then every sketching algorithm through both
+CLIs (`tohnsw`, `add`, `request`) on one small corpus: byte-identical
+databases and neighbours files where the sketcher is bit-exact; for prob and
+hll (an f32 log, see test_torch_sketchers.py) equal ids and distances within
+0.004; each package requests the other's database."""
 
 import os
 import shutil
@@ -257,3 +261,132 @@ def test_python_m_run_imports_no_jax(recipe, tmp_path):
     ref = root / outs[("jax", "db_jax")] / "gsearch.neighbors.txt"
     for kind in ("flat", "hnsw"):
         assert (tmp_path / f"out_{kind}" / "gsearch.neighbors.txt").read_bytes() == ref.read_bytes()
+
+
+# ---- every sketching algorithm through both CLIs ---------------------------------
+
+LOG_ALGOS = ("prob", "hll")
+SIG_DTYPE = {"prob": "uint32", "super": "float32", "super2": "uint32", "hll": "uint16",
+             "optdens": "float32", "revoptdens": "float32"}
+ALPHABETS = {False: b"ACGT", True: b"ACDEFGHIKLMNPQRSTVWY"}
+
+
+def write_algo_corpus(root, is_aa: bool, seed: int = 99):
+    """Six genomes (or proteomes), a query at 1% (3%) substitutions of
+    genome 1, and a genome to `add`, which is also queried."""
+    rng = np.random.default_rng(seed)
+    alpha = np.frombuffer(ALPHABETS[is_aa], np.uint8)
+    ext, n = ("faa", 6_000) if is_aa else ("fna", 10_000)
+    for d in ("db", "q", "new"):
+        (root / d).mkdir()
+    genomes = [rng.choice(alpha, n) for _ in range(6)]
+    for i, g in enumerate(genomes):
+        (root / "db" / f"g{i}.{ext}").write_bytes(b">g%d\n" % i + g.tobytes() + b"\n")
+    q = genomes[1].copy()
+    pos = rng.choice(n, n * (3 if is_aa else 1) // 100, replace=False)
+    q[pos] = rng.choice(alpha, len(pos))
+    (root / "q" / f"qq.{ext}").write_bytes(b">qq\n" + q.tobytes() + b"\n")
+    new = rng.choice(alpha, n).tobytes()
+    (root / "new" / f"added.{ext}").write_bytes(b">added\n" + new + b"\n")
+    (root / "q" / f"added.{ext}").write_bytes(b">added\n" + new + b"\n")
+    return ext
+
+
+def _hits(path) -> list:
+    """[(query, distance, answer)] of a neighbours file, in file order."""
+    rows = []
+    for line in path.read_text().splitlines():
+        if line.startswith("query_id:"):
+            f = line.split("\t")
+            rows.append((f[1], float(f[3]), f[5]))
+    return rows
+
+
+def run_algo_case(root, work, algo: str, is_aa: bool, ext: str):
+    """`tohnsw`, `add` and `request` of one algorithm by both CLIs, each
+    package requesting both databases; every comparison of the module
+    docstring.  `root` holds the corpus (the CLIs run from it, so both
+    record the same relative paths), `work` the outputs."""
+    k = "7" if is_aa else "12"
+    build = ["-k", k, "-s", "512", "-n", "8", "--ef", "64", "--algo", algo, "--block"]
+    if is_aa:
+        build.append("--aa")
+    runs = {"jax": (jax_main, []), "torch": (torch_main, ["--device", "cpu"])}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        for pkg, (run, extra) in runs.items():
+            db = str(work / f"db_{pkg}")
+            assert run(["tohnsw", "-d", "db", *build, "-o", db, *extra]) == 0
+            assert run(["add", "-b", db, "-n", "new", *extra]) == 0
+        for db in ("db_jax", "db_torch"):
+            for pkg, (run, extra) in runs.items():
+                assert run(["request", "-b", str(work / db), "-n", "4", "-r", "q",
+                            "-o", str(work / f"req_{pkg}_{db}"), *extra]) == 0
+    finally:
+        os.chdir(cwd)
+    for name in ("index.meta.json", "seqdict.json", "parameters.json"):
+        assert (work / "db_jax" / name).read_bytes() == (work / "db_torch" / name).read_bytes(), name
+    assert '"sig_dtype": "%s"' % SIG_DTYPE[algo] in (work / "db_torch" / "index.meta.json").read_text()
+    sj, st = np.load(work / "db_jax" / "index.sigs.npy"), np.load(work / "db_torch" / "index.sigs.npy")
+    assert sj.dtype == st.dtype == np.dtype(SIG_DTYPE[algo]) and sj.shape == st.shape == (7, 512)
+    outs = [work / f"req_{pkg}_{db}" / "gsearch.neighbors.txt"
+            for db in ("db_jax", "db_torch") for pkg in runs]
+    if algo in LOG_ALGOS:
+        assert (sj != st).sum(1).max() <= 1
+        # each database gives both packages the same file; across the two
+        # databases ids are equal and distances within the tolerance
+        assert outs[0].read_bytes() == outs[1].read_bytes()
+        assert outs[2].read_bytes() == outs[3].read_bytes()
+        a, b = _hits(outs[0]), _hits(outs[2])
+        assert [(q, hit) for q, _, hit in a] == [(q, hit) for q, _, hit in b]
+        assert max(abs(x[1] - y[1]) for x, y in zip(a, b)) <= 0.004
+    else:
+        np.testing.assert_array_equal(sj.view(np.uint8), st.view(np.uint8))
+        assert (work / "db_jax" / "index.sigs.npy").read_bytes() == (
+            work / "db_torch" / "index.sigs.npy").read_bytes()
+        for out in outs[1:]:
+            assert out.read_bytes() == outs[0].read_bytes(), out
+    best = {}
+    for q, d, hit in _hits(outs[3]):
+        best.setdefault(q, (d, hit))
+    assert best[f"q/qq.{ext}"][1] == f"db/g1.{ext}", best
+    assert best[f"q/added.{ext}"] == (0.0, f"new/added.{ext}"), best
+    # the reference's database through from_jax_database: the same neighbours
+    from gsearch_tpu.index.serialize import load_index as jax_load
+    from gsearch_tpu_torch.index import from_jax_database
+
+    idx = from_jax_database(str(work / "db_jax"), device=torch.device("cpu"))
+    assert idx.sig_dtype == np.dtype(SIG_DTYPE[algo])
+    d, i = idx.search(sj[[3, 6, 0]], 4)
+    d_ref, i_ref = jax_load(str(work / "db_jax")).search(sj[[3, 6, 0]], 4)
+    np.testing.assert_array_equal(i, i_ref)
+    np.testing.assert_allclose(d, d_ref, rtol=0, atol=2.0**-23)
+    assert (i[:, 0] == [3, 6, 0]).all() and (d[:, 0] == 0).all()
+
+
+@pytest.fixture(scope="module")
+def algo_corpus(tmp_path_factory):
+    root = tmp_path_factory.mktemp("algos")
+    return root, write_algo_corpus(root, is_aa=False)
+
+
+@pytest.mark.parametrize("algo", ["prob", "super", "super2", "hll", "optdens", "revoptdens"])
+def test_algo_end_to_end_both_packages(algo_corpus, tmp_path, algo):
+    root, ext = algo_corpus
+    run_algo_case(root, tmp_path, algo, False, ext)
+
+
+def test_cli_refuses_what_the_reference_refuses(algo_corpus, tmp_path):
+    """`--algo nonsense` and AA `-k 13` fail with the reference's messages."""
+    root, _ = algo_corpus
+    for args, msg in ((["-k", "12", "--algo", "nonsense"], "unknown sketching algorithm 'NONSENSE'"),
+                      (["-k", "13", "--algo", "optdens", "--aa"], r"out of range \[1,12\] for AA")):
+        for run, extra in ((jax_main, []), (torch_main, ["--device", "cpu"])):
+            with pytest.raises(ValueError, match=msg):
+                run(["tohnsw", "-d", str(root / "db"), "-s", "64", "-n", "8", *args,
+                     "-o", str(tmp_path / "x"), *extra])
+    from gsearch_tpu_torch.cli.main import build_parser
+
+    helptext = build_parser().format_help()
+    assert "bindash" in helptext and "hypermash" in helptext and "superaai" in helptext

@@ -133,8 +133,13 @@ def test_submit_finish_tickets_independent(rng):
 
 
 def test_unported_sketchers_raise():
-    for algo in ("PROB3A", "SUPER", "HLL"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_sketcher(SeqSketcherParams(kmer_size=16, sketch_size=64, algo=algo, data_t="DNA"))
-    with pytest.raises(NotImplementedError, match="AA mode"):
-        torch_sketcher(SeqSketcherParams(kmer_size=8, sketch_size=64, algo="OPTDENS", data_t="AA"))
+    """Every algorithm and amino-acid mode is ported: what still raises is
+    what the reference refuses too (an unknown algorithm, AA k > 12)."""
+    for algo in ("PROB3A", "SUPER", "SUPER2", "HLL"):
+        for data_t, k in (("DNA", 16), ("AA", 7)):
+            sk = torch_sketcher(SeqSketcherParams(kmer_size=k, sketch_size=64, algo=algo, data_t=data_t))
+            assert sk.sketch_many([]).shape == (0, 64)
+    with pytest.raises(ValueError, match="NONSENSE"):
+        SeqSketcherParams(kmer_size=16, sketch_size=64, algo="NONSENSE", data_t="DNA")
+    with pytest.raises(ValueError, match=r"out of range \[1,12\] for AA"):
+        SeqSketcherParams(kmer_size=13, sketch_size=64, algo="OPTDENS", data_t="AA")
