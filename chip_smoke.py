@@ -55,6 +55,29 @@ CUDA card it exits non-zero before printing any result.
      more request by each route recorded: the coarse prefix rerank (one
      launch over the batch), the full, packed, packed8 and packed4 tiers,
      and the first hop of the beam.
+  sharded. phase 4's 48 genomes plus clustered decoys (make_decoys) to
+     65,536 x 12,000 in a 4-shard `hnsw_sharded` database (what a
+     four-chip `--mesh 4` build writes; each shard takes the beam-insert
+     build), dumped beside phase 4's seqdict: CLI `request` equal to phase
+     4's file in the shards' merge order (ties between shards go to the
+     lower shard); CLI `add` of the 8 queries to a copy, then each best hit
+     is itself; 1,024 decoy members (5% of slots redrawn) by
+     `index.search`, tie-aware recall@10 >= 0.99 against K1 over all
+     rows; the first beam hop of shard 0 recorded (a K2 site).
+  analysis. the same 65,536 rows as a flat database too: CLI `hnsw2knn -n
+     10` of both byte-identical, recall@10 >= 0.99 of the graph on 1,024
+     nodes against K1; `ann --stats --embed` (hierarchical init) with
+     quality < 1.0 and species separated (intra < 0.5 x inter); `hnswcore
+     --coreset 256 --cluster 16`, hamming and l2, both CSVs; the k-NN
+     self-search's first rerank (a K2 site) and the coreset's [256, N]
+     assignment, [1, N] draw and [256, 256] medoid block (K1 sites); at
+     48 genomes, hnsw2knn and hnswcore files on the card equal the CPU's.
+  superani. CLI `superani --model none` of phase 4's 8 queries x 48
+     genomes: each best hit among the pairs aligned over half the query
+     is its source at ANI 99 +- 0.5 (a chain of a few chance seed matches
+     reads 100 over a sliver of a genome); the seed sketch
+     of a genome past the 4 Mb block on the card equals the CPU's; sketch
+     Mbases/s and compare pairs/s.
   algos. the other four sketching algorithms and amino-acid mode, at
      s = 12,000 through the CLI: for each of prob, super, super2 and hll,
      `tohnsw --block` of phase 4's corpus and `request` of its 8 queries
@@ -74,7 +97,9 @@ CUDA card it exits non-zero before printing any result.
      searcher and K2 on u32 and widened-u16 bits: the neighbours file is
      byte-identical, ids and distances equal `brute_force_knn`'s, K2's call
      recorded (K2 sites); `bindash` on 48 x 48 genomes at s = 12,000, its K1
-     call held against the plain version.
+     call held against the plain version; 64 sparse genomes of 600 bases
+     through prob's sketcher on the card and the CPU: found slots equal,
+     the share of genomes whose empty slots differ under 0.35.
   K2 sites.  Each recorded call is re-run with its own arguments: every
      form bitwise against the plain version, timed under each form, the
      plan's and the plain version (CUDA events; device-only time from
@@ -84,8 +109,11 @@ The launch counters are zeroed just before each main-path run and read just
 after it: phases 4-5 (K1 in phase 4, K2 and the int8 matmul in phase 5);
 hnsw-build to hnsw-add (K2 parts=2 and K1's self pairs in the bulk build,
 K2 and the int8 matmul in the request, K1 and its self pairs in the add);
-tiers (K2 parts=4 and 8); algos (K1 by every build's request and by
-bindash, K2 and the int8 matmul by the grown databases).  The line before the last
+tiers (K2 parts=4 and 8); sharded (K2 in the shards' beam hops, K1's
+self pairs in the add); analysis (K1 in the coreset, K2 and the int8
+matmul in the k-NN self-search); superani (none: plain torch);
+algos (K1 by every build's request and by bindash, K2 and the int8 matmul
+by the grown databases).  The line before the last
 is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
 """
 
@@ -94,6 +122,7 @@ from __future__ import annotations
 import difflib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -118,6 +147,8 @@ FULL = {
     "algos": ("prob", "super", "super2", "hll"), "aa_algos": ("optdens", "prob"),
     "aa_kmer": 7, "aa_lengths": (1_000_000, 2_000_000), "aa_record": 500,
     "grown_total": 8192, "piece_log2": 16, "piece_len": 300_000,
+    "shard_total": 65536, "n_shards": 4, "shard_queries": 1024, "knn_batch": 4096,
+    "coreset": 256, "cluster": 16, "sparse_genomes": 64, "sparse_len": 600,
 }
 # the tiers' lane counts at S = 12000 (hnsw._rerank_tier widths / parts)
 K2P_LANES = {2: 12288 // 2, 4: 12288 // 4, 8: 16384 // 8}
@@ -883,6 +914,376 @@ def phase_tiers(dev, cfg, pb, counts: dict) -> dict:
     return res
 
 
+def decoy_labels(cfg, n_real: int, n: int) -> dict:
+    """The planted groups of make_decoys' rows past the n_real genomes
+    (their clusters: c{c}_m{m} in walk order, per_cluster apiece): species
+    of `per` consecutive rows, families of `species` species."""
+    n_species = cfg["families"] * cfg["species"]
+    per = -(-(n - n_real) // n_species)
+    j = np.arange(n) - n_real
+    species = np.where(j < 0, np.arange(n) // cfg["per_cluster"], n_species + j // per)
+    family = np.where(j < 0, species, n_species + j // (per * cfg["species"]))
+    return {"species": species, "family": family}
+
+
+def shard_merge_order(neighbours: str, db: str, n_shards: int) -> str:
+    """A neighbours file of the flat database at db (answers ordered by
+    distance, then id) in the order the sharded merge gives: a distance tie
+    between shards goes to the lower shard (id % n_shards), then the lower
+    local row (id // n_shards)."""
+    from gsearch_tpu_torch.core import SeqDict
+
+    rank = {item.id.path: i for i, item in enumerate(SeqDict.reload_json(db))}
+    lines, out, run = neighbours.split("\n"), [], []
+
+    def key(line):
+        field = line.split("\t")
+        i = rank[field[5]]
+        return float(field[3]), i % n_shards, i // n_shards
+
+    for line in lines + [""]:
+        if line.startswith("query_id:"):
+            run.append(line)
+            continue
+        out += sorted(run, key=key)
+        run = []
+        out.append(line)
+    return "\n".join(out[:-1])
+
+
+def phase_sharded(dev, cfg, root, p4) -> dict:
+    """The sharded graph database at GTDB scale on the one card: phase 4's
+    genomes plus clustered decoys in 4 shards, requested, grown and
+    searched through the port's entry points."""
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.index.serialize import load_index
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops.distance import bucketed_knn
+    from gsearch_tpu_torch.pipeline import dump_with_placeholders, empty_index_like
+
+    flat = load_index(p4["db"], dev)
+    n_real, s, n = flat.nb_points, flat.sketch_size, cfg["shard_total"]
+    sigs = np.empty((n, s), np.float32)
+    sigs[:n_real] = flat.get_sigs()
+    del flat
+    make_decoys(dev, cfg, sigs[n_real:], torch.Generator(device=dev).manual_seed(SEED + 4))
+    index = empty_index_like(p4["db"], "hnsw", device=dev, n_shards=cfg["n_shards"])
+    t0 = time.perf_counter()
+    index.insert(sigs)
+    t_build = time.perf_counter() - t0
+    sizes = [sh.nb_points for sh in index.shards]
+    if index.KIND != "hnsw_sharded" or sum(sizes) != n or max(sizes) - min(sizes) > 1:
+        raise AssertionError(f"sharded build: {index.KIND}, shard sizes {sizes}")
+    db = os.path.join(root, "db_sharded")
+    dump_with_placeholders(p4["db"], db, index)
+    del index
+
+    out = os.path.join(root, "req_sharded")
+    t_req = _cli_request(dev, cfg, db, p4["q_dir"], out)
+    with open(p4["neighbours"]) as a, open(os.path.join(out, "gsearch.neighbors.txt")) as b:
+        want, got = shard_merge_order(a.read(), p4["db"], cfg["n_shards"]), b.read()
+    if got != want:
+        diff = "".join(list(difflib.unified_diff(
+            want.splitlines(True), got.splitlines(True), "48 genomes", "sharded"))[:60])
+        raise AssertionError(f"neighbours file of the sharded database differs from phase 4's:\n{diff}")
+    grown = db + "_add"  # the add grows a copy: the analysis reads the 65,536 rows
+    shutil.copytree(db, grown)
+    t0 = time.perf_counter()
+    if main(["add", "-b", grown, "-n", p4["q_dir"], "--device", dev.type]) != 0:
+        raise AssertionError("add to the sharded database failed")
+    t_add = time.perf_counter() - t0
+    out = os.path.join(root, "req_sharded_add")
+    t_req_add = _cli_request(dev, cfg, grown, p4["q_dir"], out)
+    for query, (dist, hit) in best_hits(os.path.join(out, "gsearch.neighbors.txt")).items():
+        if hit != query or dist != 0.0:
+            raise AssertionError(f"after add to the sharded database: best hit of {query} is {hit} at {dist}")
+    index = load_index(grown, dev)
+    if index.nb_points != n + len(p4["source"]) or [sh.nb_points for sh in index.shards] != [
+            n // cfg["n_shards"] + 2] * cfg["n_shards"]:
+        raise AssertionError(f"after add: {[sh.nb_points for sh in index.shards]} rows a shard")
+    del index
+    shutil.rmtree(grown)
+
+    # 1,024 decoy members with 5% of slots redrawn, against K1 over all rows
+    index = load_index(db, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    nq, k = cfg["shard_queries"], cfg["knbn"]
+    src = torch.randint(n_real, n, (nq,), generator=gen, device=dev).cpu().numpy()
+    rows = torch.from_numpy(sigs[src]).to(dev)
+    q = torch.where(torch.rand(rows.shape, generator=gen, device=dev) < 0.05,
+                    torch.rand(rows.shape, generator=gen, device=dev), rows)
+    qn = q.cpu().numpy()
+    saved = dict(cuda_lib.launches)
+    all_rows = torch.from_numpy(index.get_sigs()).to(dev).view(torch.int32)
+    true_d, _ = bucketed_knn(q.view(torch.int32), all_rows, k)
+    del all_rows
+    cuda_lib.launches.update(saved)  # the oracle is not the main path
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        d, ids = index.search(qn, k)
+        times.append(time.perf_counter() - t0)
+    recall = _tie_aware(d, true_d)
+    routes = {sh.stats["search"]["route"] for sh in index.shards}
+    if recall < 0.99 or routes != {"beam"}:
+        raise AssertionError(f"sharded search: recall@10 {recall}, shard routes {routes}")
+    with K2Recorder(keep=1) as rec:  # shard 0's first hop is the first call
+        index.search(qn, k)
+    hops = sum(sh.stats["search"]["hops"] for sh in index.shards)
+    if rec.count != hops + len(index.shards):
+        raise AssertionError(f"sharded search: {rec.count} K2 calls for {hops} hops")
+    site = k2_site(dev, f"shard beam hop (the first of shard 0), {cfg['n_shards']} shards of "
+                   f"{n // cfg['n_shards']}", rec.calls[0], hops)
+    del rec, index
+    torch.cuda.empty_cache()
+    print(f"phase sharded {n} x {s} in {cfg['n_shards']} shards of {sizes[0]} (beam-insert build "
+          f"{t_build:.1f} s): CLI request byte-identical to phase 4's in the shards' merge order "
+          f"({t_req:.1f} s); CLI add of 8 "
+          f"({t_add:.1f} s), then each query's best hit is itself ({t_req_add:.1f} s); {nq} queries "
+          f"recall@10 {recall:.4f} in {hops} hops")
+    return {"db": db, "n_real": n_real, "build_s": t_build, "request_s": t_req, "add_s": t_add,
+            "search_s": statistics.median(times[1:]), "search_cold_s": times[0], "recall": recall,
+            "hops": hops, "k2_site": site}
+
+
+class K1Recorder:
+    """While active, the coreset's K1 calls are recorded: (q, db) of each."""
+
+    def __enter__(self):
+        import gsearch_tpu_torch.analysis.coreset as core_mod
+
+        self.mod, self.real, self.calls = core_mod, core_mod.hamming_frac, []
+
+        def recorder(q, db, **kw):
+            self.calls.append((q, db))
+            return self.real(q, db, **kw)
+
+        core_mod.hamming_frac = recorder
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.hamming_frac = self.real
+        return False
+
+
+def _same_files(what: str, a: str, b: str) -> None:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"{what}: {a} and {b} differ")
+
+
+def phase_analysis(dev, cfg, root, p4, ps) -> dict:
+    """The database-analysis tools through the CLI on the sharded database
+    and on a flat one of the same 65,536 rows: hnsw2knn, ann --stats
+    --embed, hnswcore; at flat-48 size, card output equal to the CPU's."""
+    import gsearch_tpu_torch.analysis.embed as embed_mod
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.core import ProcessingParams, ProcessingState, SeqDict
+    from gsearch_tpu_torch.index.flat import FlatIndex
+    from gsearch_tpu_torch.index.serialize import dumpall, load_index
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops.distance import hamming_frac
+
+    sigs = load_index(ps["db"], dev).get_sigs()
+    n, s, k = sigs.shape[0], sigs.shape[1], cfg["knbn"]
+    flat_db = os.path.join(root, "db_flat_shard_rows")
+    flat = FlatIndex(s, np.float32, dev)
+    flat.insert(sigs)
+    dumpall(flat_db, flat, SeqDict.reload_json(ps["db"]), ProcessingParams.reload_json(ps["db"]),
+            ProcessingState.reload_json(ps["db"]))
+    del flat
+    res = {}
+
+    # k-NN graph of both databases (the self-search reads global order)
+    knn = {}
+    for tag, db in (("flat", flat_db), ("sharded", ps["db"])):
+        knn[tag] = os.path.join(root, f"knn_{tag}.txt")
+        t0 = time.perf_counter()
+        with K2Recorder(keep=1) as rec:
+            rc = main(["hnsw2knn", "-b", db, "-n", str(k), "-o", knn[tag], "--device", dev.type])
+        res[f"knn_{tag}_s"] = time.perf_counter() - t0
+        if rc != 0 or not rec.calls:
+            raise AssertionError(f"hnsw2knn of the {tag} database failed or made no K2 call")
+        if tag == "flat":
+            res["k2_site"] = k2_site(dev, f"k-NN self-search rerank (the first {cfg['knn_batch']}-query "
+                                     f"batch) over {n}", rec.calls[0], rec.count)
+        del rec
+        torch.cuda.empty_cache()
+    _same_files("hnsw2knn of the flat and the sharded database", knn["flat"], knn["sharded"])
+    # tie-aware recall@10 of the graph on 1,024 sampled nodes against K1
+    rng = np.random.default_rng(SEED + 6)
+    pick = np.sort(rng.choice(n, cfg["shard_queries"], replace=False))
+    got_d = np.empty((len(pick), k), np.float32)
+    with open(knn["flat"]) as f:
+        row = 0
+        for i, line in enumerate(f):
+            if row < len(pick) and i == pick[row]:
+                got_d[row] = [float(x.rsplit(":", 1)[1]) for x in line.rstrip("\n").split("\t")[1:]]
+                row += 1
+    saved = dict(cuda_lib.launches)
+    all_rows = torch.from_numpy(sigs).to(dev).view(torch.int32)
+    d = hamming_frac(all_rows[torch.from_numpy(pick).to(dev)], all_rows)
+    d[torch.arange(len(pick), device=dev), torch.from_numpy(pick).to(dev)] = torch.inf  # not itself
+    true_d = torch.sort(d, dim=1).values[:, :k].cpu().numpy()
+    del all_rows, d
+    cuda_lib.launches.update(saved)
+    # the file's distances are rounded to 5 decimals
+    res["knn_recall"] = float(1.0 - (np.sort(got_d, 1) > np.round(true_d, 5) + 1e-5).mean())
+    if res["knn_recall"] < 0.99:
+        raise AssertionError(f"k-NN graph: tie-aware recall@10 {res['knn_recall']} on {len(pick)} nodes")
+
+    # ann --stats --embed on the flat database (hierarchical init above 30,000)
+    seen = []
+    real_embed = embed_mod.Embedder.embed
+
+    def spy(self):
+        seen.append(self)
+        return real_embed(self)
+
+    embed_mod.Embedder.embed = spy
+    try:
+        t0 = time.perf_counter()
+        rc = main(["ann", "-b", flat_db, "--stats", "--embed", "-o", root, "--device", dev.type])
+        res["ann_s"] = time.perf_counter() - t0
+    finally:
+        embed_mod.Embedder.embed = real_embed
+    if rc != 0 or len(seen) != 1:
+        raise AssertionError("ann --stats --embed failed")
+    emb = seen[0]
+    y = np.loadtxt(os.path.join(root, "database_embedded.csv"), delimiter=",")
+    quality = emb.get_quality_estimate_from_edge_length(200)
+    labels = decoy_labels(cfg, ps["n_real"], n)
+    pairs = rng.integers(0, n, (2, 20_000))
+    dist = np.linalg.norm(y[pairs[0]] - y[pairs[1]], axis=1)
+    ratio = {}
+    for level, lab in labels.items():
+        same = lab[pairs[0]] == lab[pairs[1]]
+        ratio[level] = float(dist[same].mean() / dist[~same].mean())
+    if y.shape != (n, 2) or not np.isfinite(y).all() or not 0 <= quality < 1.0 or ratio["species"] >= 0.5:
+        raise AssertionError(f"embedding: shape {y.shape}, quality {quality}, intra/inter {ratio}")
+    res.update(embed_init_s=emb.times["init_s"], embed_opt_s=emb.times["optimize_s"], quality=quality,
+               intra_inter=ratio, hier=n > emb.params.hier_threshold)
+    del y, emb, seen
+
+    # hnswcore: hamming (its K1 calls recorded), then l2
+    core_out = {}
+    for metric in ("hamming", "l2"):
+        out = os.path.join(root, f"core_{metric}")
+        os.makedirs(out)
+        t0 = time.perf_counter()
+        with K1Recorder() as rec:
+            rc = main(["hnswcore", "-b", flat_db, "--coreset", str(cfg["coreset"]), "--cluster",
+                       str(cfg["cluster"]), "--metric", metric, "-o", out, "--device", dev.type])
+        res[f"core_{metric}_s"] = time.perf_counter() - t0
+        for name in ("coreset.csv", "clustercoreset.csv"):
+            with open(os.path.join(out, name)) as f:
+                rows = sum(1 for _ in f) - 1
+            if rows != (cfg["coreset"] if name == "coreset.csv" else n):
+                raise AssertionError(f"hnswcore --metric {metric}: {name} has {rows} rows")
+        if rc != 0:
+            raise AssertionError(f"hnswcore --metric {metric} failed")
+        core_out[metric] = rec.calls
+        del rec
+    calls = core_out.pop("hamming")
+    shapes = [tuple(q.shape[:1]) + tuple(db.shape[:1]) for q, db in calls]
+    c = cfg["coreset"]
+    assign = [i for i, sh in enumerate(shapes) if sh == (c, n)][-1]  # after the quantiles' block
+    sites = [k1_device_site(dev, f"coreset assignment sweep [{c}, {n}]", *calls[assign],
+                            shapes.count((c, n))),
+             k1_device_site(dev, f"coreset draw sweep [1, {n}]", *calls[shapes.index((1, n))],
+                            shapes.count((1, n))),
+             k1_device_site(dev, f"cluster_coreset medoid block [{c}, {c}]",
+                            *calls[shapes.index((c, c))], shapes.count((c, c)))]
+    for ent in sites:
+        ent.pop("out")
+    res["k1_sites"] = sites
+    res["k1_calls"] = len(calls)
+    del calls, core_out
+    torch.cuda.empty_cache()
+
+    # flat-48: the card's hnsw2knn and hnswcore output equals the CPU's
+    for d in (dev.type, "cpu"):
+        out = os.path.join(root, f"small_{d}")
+        os.makedirs(out, exist_ok=True)
+        if main(["hnsw2knn", "-b", p4["db"], "-n", str(k), "-o", os.path.join(out, "knn.txt"),
+                 "--device", d]) != 0 or main(["hnswcore", "-b", p4["db"], "--coreset", "32", "--cluster",
+                                               "4", "-o", out, "--device", d]) != 0:
+            raise AssertionError(f"hnsw2knn / hnswcore of phase 4's database on {d} failed")
+    for name in ("knn.txt", "coreset.csv", "clustercoreset.csv"):
+        _same_files(f"{name} at 48 genomes, card and CPU", os.path.join(root, f"small_{dev.type}", name),
+                    os.path.join(root, "small_cpu", name))
+    print(f"phase analysis {n} x {s}: hnsw2knn -n {k} of the flat and the sharded database "
+          f"byte-identical ({res['knn_flat_s']:.1f} s, {res['knn_sharded_s']:.1f} s CLI wall), recall@10 "
+          f"{res['knn_recall']:.4f} on {len(pick)} nodes; ann --stats --embed quality {quality:.3f}, "
+          f"intra/inter species {ratio['species']:.3f}, families {ratio['family']:.3f}; hnswcore "
+          f"--coreset {c} --cluster {cfg['cluster']} (hamming, l2): both CSVs; at 48 genomes the card's "
+          f"hnsw2knn and hnswcore files equal the CPU's")
+    return res
+
+
+def phase_superani(dev, cfg, root, p4) -> dict:
+    """superani through the CLI on phase 4's queries against its genomes
+    (raw ANI); the seed sketch of a genome past the 4 Mb block on the card
+    against the CPU's; sketch and compare rates."""
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.io.fasta import concat_file_codes
+    from gsearch_tpu_torch.models import seedchain
+    from gsearch_tpu_torch.models.seedchain import SeedChainer
+
+    refs = sorted(os.path.join(p4["db_dir"], f) for f in os.listdir(p4["db_dir"]))
+    queries = sorted(os.path.join(p4["q_dir"], f) for f in os.listdir(p4["q_dir"]))
+    ql, rl, out = (os.path.join(root, name) for name in ("sa_q.txt", "sa_r.txt", "superani.tsv"))
+    for path, lst in ((ql, queries), (rl, refs)):
+        with open(path, "w") as f:
+            f.write("\n".join(lst) + "\n")
+    t0 = time.perf_counter()
+    if main(["superani", "-q", ql, "-r", rl, "-o", out, "--model", "none", "--device", dev.type]) != 0:
+        raise AssertionError("superani failed")
+    t_cli = time.perf_counter() - t0
+    # a chain of a few chance seed matches reads ANI 100 over a sliver of
+    # the query, so the best hit is taken among pairs aligned over half of it
+    best, stray = {}, 0
+    with open(out) as f:
+        next(f)
+        for line in f:
+            q, r, ani, af_q = line.split("\t")[:4]
+            q, r = os.path.basename(q), os.path.basename(r)
+            if float(af_q) < 0.5:
+                stray += float(ani) > 0.0
+            elif float(ani) > best.get(q, ("", -1.0))[1]:
+                best[q] = (r, float(ani))
+    for query, src in p4["source"].items():
+        hit, ani = best.get(query, (None, float("nan")))
+        if hit != src or not abs(ani - 99.0) < 0.5:
+            raise AssertionError(f"superani: best hit of {query} is {hit} at {ani}, expected {src} at 99 +- 0.5")
+    codes = [concat_file_codes(p)[0] for p in refs + queries]
+    chainer = SeedChainer(device=dev)
+    chainer.sketch(codes[0][:100_000])  # warm-up
+    t0 = time.perf_counter()
+    sk = [chainer.sketch(c) for c in codes]  # each sketch ends in a copy to the host
+    t_sketch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for qs in sk[len(refs):]:
+        for rs in sk[: len(refs)]:
+            chainer.compare(qs, rs)
+    t_compare = time.perf_counter() - t0
+    longest = max(codes, key=len)
+    if len(longest) <= 1 << seedchain._MAX_PIECE_LOG2:
+        raise AssertionError("no genome past the 4 Mb block")
+    card, cpu = chainer.sketch(longest), SeedChainer(device=torch.device("cpu")).sketch(longest)
+    if not (np.array_equal(card.hashes, cpu.hashes) and np.array_equal(card.positions, cpu.positions)):
+        raise AssertionError("superani: the card's seed sketch differs from the CPU's")
+    mbases = sum(len(c) for c in codes) / 1e6
+    pairs = len(queries) * len(refs)
+    print(f"phase superani {len(queries)} x {len(refs)} (--model none): every query's best hit is its "
+          f"source at ANI {min(a for _, a in best.values()):.3f}..{max(a for _, a in best.values()):.3f} "
+          f"({t_cli:.1f} s CLI wall; {stray} of {len(queries) * len(refs)} pairs chained under half of "
+          f"the query); the seed sketch of a {len(longest) / 1e6:.1f} Mb genome on the card "
+          f"equals the CPU's")
+    return {"cli_s": t_cli, "sketch_s": t_sketch, "mbases": mbases, "compare_s": t_compare,
+            "pairs": pairs}
+
+
 AA_LETTERS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
 # sketchers whose card and CPU signatures must agree bit for bit; the others
 # take a log (float64 rounded to f32 on both sides) and may differ in
@@ -980,6 +1381,40 @@ def card_vs_cpu(dev, algo: str, db: str, genomes: list, cfg) -> float:
     return frac
 
 
+# share of sparse genomes whose empty ProbMinHash slots may differ between
+# two back ends (tests/test_torch_sketchers.py::test_prob_sparse_genomes_empty_slots)
+PROB_SPARSE_GENOMES = 0.35
+
+
+def sparse_prob_card_vs_cpu(dev, db: str, cfg) -> float:
+    """ProbMinHash of sparse genomes (fewer darts than slots) on the card
+    against the port's CPU sketcher: the found slots agree exactly; the
+    empty slots, filled from the genome's least key, may differ as a whole
+    where that key's log rounds apart.  Returns the share of such genomes."""
+    from gsearch_tpu_torch.pipeline import database_sketcher
+
+    rng = np.random.default_rng(SEED + 17)
+    genomes = [rng.integers(0, 4, cfg["sparse_len"], dtype=np.uint8) for _ in range(cfg["sparse_genomes"])]
+    sigs, found = {}, {}
+    for d in (dev, torch.device("cpu")):
+        sk = database_sketcher(db, device=d)
+        seen = []
+        finalize = sk._finalize_race
+        sk._finalize_race = lambda race, seen=seen, finalize=finalize: (
+            seen.append(race.found.cpu().numpy()), finalize(race))[1]
+        sigs[d.type], found[d.type] = sk.sketch_many(genomes), seen[0]
+    f = found["cpu"]
+    if not np.array_equal(found[dev.type], f) or not (~f).any(1).all():
+        raise AssertionError(f"sparse prob: found slots differ between card and CPU, or a genome has "
+                             f"no empty slot ({f.mean()} found)")
+    if not np.array_equal(sigs[dev.type][f], sigs["cpu"][f]):
+        raise AssertionError("sparse prob: a found slot differs between card and CPU")
+    share = float((sigs[dev.type] != sigs["cpu"]).any(1).mean())
+    if share >= PROB_SPARSE_GENOMES:
+        raise AssertionError(f"sparse prob: {share} of genomes differ in their empty slots")
+    return share
+
+
 def sketch_seconds(dev, db: str, genomes: list, runs: int = 1) -> float:
     """The least wall time of `runs` calls of sketch_many over the parsed
     genomes with the database's sketcher, after a warm-up on two of them."""
@@ -999,36 +1434,58 @@ def sketch_seconds(dev, db: str, genomes: list, runs: int = 1) -> float:
     return min(times)
 
 
-def k1_site(dev, site: str, q_rows: np.ndarray, db_rows: np.ndarray, launches: int) -> dict:
-    """K1 on host signature rows of an unsigned type (u32 viewed, u16
-    widened): bitwise against the plain version, and its equal counts
-    against integer equality on the host; timed on the card."""
+def k1_device_site(dev, site: str, q: torch.Tensor, db: torch.Tensor, launches: int,
+                   dtype: str = "float32") -> dict:
+    """A K1 call of the main path re-run with its own device rows: bitwise
+    against the plain version; timed on the card beside its bound and
+    torch.cdist(p=0).  These launches are not main-path launches: the
+    counts are restored."""
     from gsearch_tpu_torch.ops import cuda_lib
-    from gsearch_tpu_torch.ops.distance import as_int32_rows, hamming_frac, hamming_frac_plain, k1_plan
+    from gsearch_tpu_torch.ops.distance import hamming_frac, hamming_frac_plain, k1_plan
 
     saved = dict(cuda_lib.launches)
-    q, db = as_int32_rows(q_rows).to(dev), as_int32_rows(db_rows).to(dev)
     got, want = hamming_frac(q, db), hamming_frac_plain(q, db)
     if not same_bits(got, want):
         raise AssertionError(f"K1 {site}: differs from its plain version, max abs err "
                              f"{max_abs_err(got, want)}")
-    s = q.shape[1]
-    eq = (q_rows[:, None, :] == db_rows[None, :, :]).sum(-1)
-    if not np.array_equal(np.rint((1.0 - got.cpu().numpy().astype(np.float64)) * s), eq):
-        raise AssertionError(f"K1 {site}: equal counts differ from integer equality on the host")
+    del want
     sms = torch.cuda.get_device_properties(dev).multi_processor_count if dev.type == "cuda" else 132
-    nq, n = q.shape[0], db.shape[0]
-    ent = {"site": site, "launches": launches, "shape": [nq, n, s], "dtype": str(db_rows.dtype),
-           "err": 0.0, "plan": k1_plan(1, nq, n, s, sms)._asdict()}
+    (nq, s), n = q.shape, db.shape[0]
+    ent = {"site": site, "launches": launches, "shape": [nq, n, s], "dtype": dtype,
+           "err": 0.0, "plan": k1_plan(1, nq, n, s, sms)._asdict(), "out": got}
     if dev.type == "cuda":
+        big = nq * n * s > 1 << 32
         qf, dbf = q.float(), db.float()
-        ent.update(ms=event_ms(lambda: hamming_frac(q, db), 50),
-                   device_ms=device_ms(lambda: hamming_frac(q, db), 50, "eqcount_kernel"),
-                   plain_ms=event_ms(lambda: hamming_frac_plain(q, db), 20),
-                   library_ms=event_ms(lambda: torch.cdist(qf, dbf, p=0), 20),
+        ent.update(ms=event_ms(lambda: hamming_frac(q, db), 5 if big else 50),
+                   device_ms=device_ms(lambda: hamming_frac(q, db), 5 if big else 50, "eqcount_kernel"),
+                   plain_ms=event_ms(lambda: hamming_frac_plain(q, db), 2 if big else 20),
+                   library_ms=event_ms(lambda: torch.cdist(qf, dbf, p=0), 2 if big else 20),
                    **k1_bound(1, nq, n, s, sms))
+        del qf, dbf
     cuda_lib.launches.update(saved)
     return ent
+
+
+def k1_site(dev, site: str, q_rows: np.ndarray, db_rows: np.ndarray, launches: int) -> dict:
+    """K1 on host signature rows of an unsigned type (u32 viewed, u16
+    widened): `k1_device_site`, and its equal counts against integer
+    equality on the host."""
+    from gsearch_tpu_torch.ops.distance import as_int32_rows
+
+    q, db = as_int32_rows(q_rows).to(dev), as_int32_rows(db_rows).to(dev)
+    ent = k1_device_site(dev, site, q, db, launches, dtype=str(db_rows.dtype))
+    eq = (q_rows[:, None, :] == db_rows[None, :, :]).sum(-1)
+    got = ent.pop("out").cpu().numpy().astype(np.float64)
+    if not np.array_equal(np.rint((1.0 - got) * q.shape[1]), eq):
+        raise AssertionError(f"K1 {site}: equal counts differ from integer equality on the host")
+    return ent
+
+
+def print_k1_site(ent: dict) -> None:
+    print(f"  K1 {ent['site']}: {ent['shape']} ({ent['plan']['tile']}, {ent['plan']['splits']} "
+          f"splits), {ent['launches']} launch(es) on the main path: kernel {ent['ms']:.4f} ms "
+          f"(device only {ent['device_ms']} ms), plain {ent['plain_ms']:.4f} ms, cdist "
+          f"{ent['library_ms']:.4f} ms, bound {ent['bound_ms']:.5f} ms ({ent['bound_by']})")
 
 
 def plant_patterns(rows: np.ndarray, rng) -> np.ndarray:
@@ -1205,6 +1662,11 @@ def phase_algos(dev, cfg, root, p4, card: str) -> dict:
     for algo in cfg["algos"]:
         ent = build_and_request(algo, algo, p4["db_dir"], p4["q_dir"], p4["source"], cfg["kmer"], False)
         report(algo, algo, ent, genomes, picks, "bases")
+        if algo == "prob":
+            ent["sparse_share"] = sparse_prob_card_vs_cpu(dev, ent["db"], cfg)
+            print(f"phase algos prob, {cfg['sparse_genomes']} sparse genomes of {cfg['sparse_len']} bases: "
+                  f"found slots equal on card and CPU; {ent['sparse_share']:.3f} of the genomes differ in "
+                  f"their empty slots (bound {PROB_SPARSE_GENOMES})")
     del genomes
 
     t0 = time.perf_counter()
@@ -1306,13 +1768,40 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     graph = {"build_s": pb["build_s"], "dump_s": pb["dump_s"], "stages": pb["stages"],
              "request_s": pr["request_s"]}
     k2_sites = [p5["k2_site"], pb["k2_site"], *tiers["k2_sites"]]
+    shutil.rmtree(pb["db"])
     del pb
     torch.cuda.empty_cache()
+
+    cuda_lib.reset_launches()
+    ps = timed("phase sharded", phase_sharded, dev, cfg, root, p4)
+    sharded_counts = dict(cuda_lib.launches)
+    if dev.type == "cuda" and (sharded_counts["gather_hamming"] == 0
+                               or sharded_counts["hamming_frac_self"] == 0):
+        raise AssertionError(f"the sharded database's requests and add did not go through K2 "
+                             f"(beam hops) and K1's self pairs (add): {sharded_counts}")
+    print(f"main-path launches, sharded: {sharded_counts}")
+    cuda_lib.reset_launches()
+    pa_ = timed("phase analysis", phase_analysis, dev, cfg, root, p4, ps)
+    analysis_counts = dict(cuda_lib.launches)
+    if dev.type == "cuda" and (analysis_counts["hamming_frac"] == 0 or analysis_counts["gather_hamming"] == 0
+                               or analysis_counts["int_mm"] == 0):
+        raise AssertionError(f"the analysis tools did not go through K1 (coreset), K2 and the int8 "
+                             f"matmul (k-NN self-search): {analysis_counts}")
+    print(f"main-path launches, analysis: {analysis_counts}")
+    shutil.rmtree(ps.pop("db"))
+    torch.cuda.empty_cache()
+    cuda_lib.reset_launches()
+    sa = timed("phase superani", phase_superani, dev, cfg, root, p4)
+    superani_counts = dict(cuda_lib.launches)
+    print(f"main-path launches, superani: {superani_counts} (seed hashing is plain torch)")
+    k2_sites += [ps["k2_site"], pa_["k2_site"]]
+
     algos = timed("phase algos", phase_algos, dev, cfg, root, p4, card)
     print(f"main-path launches, algos: {algos['counts']}")
     k2_sites += algos["k2_sites"]
-    launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] + algos["counts"][k]
-                for k in flat_counts}
+    k1_sites = algos["k1_sites"] + pa_["k1_sites"]
+    launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] + sharded_counts[k]
+                + analysis_counts[k] + superani_counts[k] + algos["counts"][k] for k in flat_counts}
 
     t = timed("phase 6", phase_timings, dev, cfg, p4, p5)
     k2_sites.insert(1, t["k2_site"])
@@ -1350,11 +1839,8 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
                   f"({ent['unique_rows']} unique rows)")
         for ent in k2_sites:
             print_k2_site(ent)
-        for ent in algos["k1_sites"]:
-            print(f"  K1 {ent['site']}: {ent['shape']} ({ent['plan']['tile']}, {ent['plan']['splits']} "
-                  f"splits), {ent['launches']} launch(es) on the main path: kernel {ent['ms']:.4f} ms "
-                  f"(device only {ent['device_ms']} ms), plain {ent['plain_ms']:.4f} ms, cdist "
-                  f"{ent['library_ms']:.4f} ms, bound {ent['bound_ms']:.5f} ms ({ent['bound_by']})")
+        for ent in k1_sites:
+            print_k1_site(ent)
     stages = ", ".join(f"{k} {v:.2f} s" for k, v in graph["stages"].items())
     print(f"  graph {cfg['hnsw_total']} x {cfg['sketch']}: bulk build {graph['build_s']:.1f} s "
           f"({stages}); dump {graph['dump_s']:.1f} s; CLI request of 8 genomes "
@@ -1365,6 +1851,22 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
         print(f"  request {cfg['tier_queries']} queries, route {name}: {ent['s'] * 1e3:.1f} ms warm "
               f"({ent['cold_s']:.2f} s cold){extra}")
     print(f"  graph CLI: add of 8 genomes {pa['add_s']:.1f} s, request {pa['request_s']:.1f} s")
+    print(f"  timing sharded on {card}: {cfg['shard_queries']} queries x {cfg['shard_total']} x "
+          f"{cfg['sketch']} in {cfg['n_shards']} shards, k={cfg['knbn']}: {ps['search_s'] * 1e3:.1f} ms "
+          f"warm ({ps['search_cold_s']:.2f} s cold, {ps['hops']} hops in all); CLI request of 8 "
+          f"{ps['request_s']:.1f} s, add of 8 {ps['add_s']:.1f} s; beam-insert build {ps['build_s']:.1f} s")
+    print(f"  timing k-NN graph on {card}: {cfg['shard_total']} nodes, k={cfg['knbn']}: "
+          f"{cfg['shard_total'] / pa_['knn_flat_s']:.0f} nodes/s (hnsw2knn CLI wall {pa_['knn_flat_s']:.1f} s, "
+          f"load and searcher build included; sharded database {pa_['knn_sharded_s']:.1f} s)")
+    print(f"  timing embed on {card}: {cfg['shard_total']} nodes ({'hierarchical' if pa_['hier'] else 'dmap'} "
+          f"init): init {pa_['embed_init_s']:.1f} s, optimisation {pa_['embed_opt_s']:.1f} s; ann CLI "
+          f"{pa_['ann_s']:.1f} s")
+    print(f"  timing coreset on {card}: hnswcore --coreset {cfg['coreset']} --cluster {cfg['cluster']} "
+          f"over {cfg['shard_total']}: hamming {pa_['core_hamming_s']:.1f} s ({pa_['k1_calls']} K1 calls), "
+          f"l2 {pa_['core_l2_s']:.1f} s (CLI wall)")
+    print(f"  timing superani on {card}: sketch {sa['mbases'] / sa['sketch_s']:.1f} Mbases/s "
+          f"({sa['mbases']:.1f} Mbases, parsed), compare {sa['pairs'] / sa['compare_s']:.0f} pairs/s; "
+          f"CLI {sa['cli_s']:.1f} s for {sa['pairs']} pairs")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
     src = "gsearch_tpu_torch/csrc/hamming.cu"
 
@@ -1380,7 +1882,7 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
                                        "load_512", "plan")}
     kernels = [
         entry("hamming_frac", "gsearch_tpu/ops/distance.py:69", k1["err"], k1, k1.get("library_ms"),
-              shape=list(cfg["k1"]), main_path=algos["k1_sites"], **k1_extra),
+              shape=list(cfg["k1"]), main_path=k1_sites, **k1_extra),
         entry("hamming_frac_self", "gsearch_tpu/ops/distance.py:69", k1["self"]["err"], k1["self"],
               k1["self"].get("library_ms"), shape=list(cfg["k1_batch"]),
               ms_both_triangles=k1["self"].get("ms_both_triangles")),

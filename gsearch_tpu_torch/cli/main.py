@@ -2,9 +2,10 @@
 
 The subcommands and flags of gsearch_tpu's CLI for the ported slice:
 tohnsw (all six sketching algorithms, DNA and `--aa`) / add / request /
-reformat, and the pairwise tools bindash / hypermash / superaai, forwarded
-to their own parsers; plus `--device` (default cuda; asking for cuda
-without a card raises, the CPU is asked for with --device cpu).  As in the
+ann / reformat, and the tools bindash / hypermash / superaai / superani /
+hnsw2knn / hnswcore, forwarded to their own parsers; plus `--device`
+(default cuda; asking for cuda without a card raises, the CPU is asked
+for with --device cpu).  As in the
 reference, add/request take no algorithm flags: everything is reloaded
 from the database's parameters.json.
 """
@@ -68,6 +69,19 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--ef", type=int, default=0,
                    help="graph search width (0: the index's default; ignored by the flat index)")
 
+    n = sub.add_parser("ann", help="graph stats and 2-D embedding of a database")
+    _add_global(n)
+    n.add_argument("-b", "--hnsw", required=True, dest="hnsw_dir")
+    n.add_argument("-s", "--stats", action="store_true")
+    n.add_argument("-e", "--embed", action="store_true")
+    n.add_argument("--nb_grad_batch", type=int, default=15, help="gradient batches")
+    n.add_argument("--scale_rho", type=float, default=0.75)
+    n.add_argument("--beta", type=float, default=1.0)
+    n.add_argument("--grad_step", type=float, default=3.0)
+    n.add_argument("--nb_sampling_by_edge", type=int, default=10)
+    n.add_argument("--knbn", type=int, default=8, help="k-NN graph width")
+    n.add_argument("-o", "--out", default=".", help="output directory")
+
     f = sub.add_parser("reformat", help="neighbors file -> TSV with ANI")
     f.add_argument("kmer", type=int)
     f.add_argument("model", type=int, help="1=Poisson, 2=Binomial")
@@ -84,6 +98,9 @@ TOOLS = {
     "bindash": "gsearch_tpu_torch.cli.bindash",
     "hypermash": "gsearch_tpu_torch.cli.hypermash",
     "superaai": "gsearch_tpu_torch.cli.superaai",
+    "superani": "gsearch_tpu_torch.cli.superani",
+    "hnsw2knn": "gsearch_tpu_torch.cli.hnsw2knn",
+    "hnswcore": "gsearch_tpu_torch.cli.hnswcore",
 }
 
 
@@ -151,6 +168,22 @@ def main(argv=None) -> int:
                                out_dir=args.out, ef_search=args.ef, device=device)
         print(f"{res['nb_requests']} requests, {res['nb_matches']} matches "
               f"-> {res['neighbors_file']}")
+        return 0
+
+    if args.command == "ann":
+        from ..analysis.embed import EmbedderParams, get_graph_stats_embed
+
+        eparams = EmbedderParams(
+            nb_grad_batch=args.nb_grad_batch,
+            scale_rho=args.scale_rho,
+            beta=args.beta,
+            grad_step=args.grad_step,
+            nb_sampling_by_edge=args.nb_sampling_by_edge,
+        )
+        res = get_graph_stats_embed(args.hnsw_dir, ask_stats=args.stats, embed=args.embed,
+                                    knbn=args.knbn, params=eparams, out_dir=args.out,
+                                    device=device)
+        print(res["summary"])
         return 0
     return 1
 

@@ -6,7 +6,7 @@ a database written by either package is requested by the other:
     index.meta.json    {kind, sig_dtype, nb_points, sketch_size, sig_file}
     index.sigs.npy     signature matrix [N, S]
     index.graph.npz    (hnsw only) nbrs, nbr_d, entry_ids, pinned
-The flat and hnsw kinds are ported; the sharded graph kind raises.
+    index.shard{i}.sigs.npy, index.shard{i}.graph.npz  (hnsw_sharded, a shard each)
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from .flat import FlatIndex
 from .hnsw import HnswIndex
+from .sharded import ShardedHnswIndex
 
 INDEX_META_FILE = "index.meta.json"
 INDEX_PREFIX = "index"
@@ -44,17 +45,15 @@ def get_index_kind(dirpath: str) -> dict:
 
 def load_index(dirpath: str, device: torch.device):
     meta = get_index_kind(dirpath)
-    kinds = {FlatIndex.KIND: FlatIndex, HnswIndex.KIND: HnswIndex}
+    kinds = {cls.KIND: cls for cls in (FlatIndex, HnswIndex, ShardedHnswIndex)}
     if meta["kind"] not in kinds:
-        raise NotImplementedError(
-            f"index kind {meta['kind']!r} is not yet ported (ROADMAP.md: the sharded "
-            "graph index with parallel/mesh.py); flat and hnsw databases can be loaded")
+        raise ValueError(f"{dirpath}: unknown index kind {meta['kind']!r}")
     return kinds[meta["kind"]].load_arrays(os.path.join(dirpath, INDEX_PREFIX), meta, device)
 
 
 def from_jax_database(dirpath: str, *, device: torch.device):
-    """Load a database written by gsearch_tpu into the port's FlatIndex or
-    HnswIndex on `device` (no default: the caller names the card or the CPU)."""
+    """Load a database written by gsearch_tpu into the port's FlatIndex,
+    HnswIndex or ShardedHnswIndex on `device` (no default: the caller names the card or the CPU)."""
     return load_index(dirpath, device)
 
 

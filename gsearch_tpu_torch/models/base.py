@@ -189,8 +189,10 @@ class SketcherBase:
         return self.sketch_finish(self.sketch_submit(codes_list))
 
     def sketch_submit(self, codes_list: Sequence) -> SketchTicket:
-        """Enqueue the device work for a list of genomes; returns at once
-        on CUDA (kernels run asynchronously on the current stream)."""
+        """Enqueue the device work for a list of genomes.  On CUDA the
+        kernels run asynchronously on the current stream, but each row
+        group is uploaded from pageable host memory, a copy the host waits
+        for: the call returns after the last upload, not at once."""
         ticket = SketchTicket(np.empty((len(codes_list), self.nb_slots), dtype=self.SIG_DTYPE))
         if not codes_list:
             return ticket

@@ -6,7 +6,10 @@ protein files in amino-acid mode) -> device sketching by any of the six
 algorithms -> flat or graph index -> dump, and the request path that reloads
 a database, sketches the queries and writes gsearch.neighbors.txt.  `add`
 converts a flat database that grows past `flat_auto_limit` to the graph
-index, as the reference does.  Mesh sharding is not ported and is rejected.
+index, as the reference does.  A sharded graph database (written by a
+`--mesh N` build of gsearch_tpu) is requested and grown shard by shard
+on the one device, the reference's `mesh_devices == 0` branch; mesh
+sharding itself is not ported and is rejected.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from .core import ComputingParams, Id, ItemDict, ProcessingParams, ProcessingState, SeqDict
 from .index.flat import FlatIndex
 from .index.hnsw import HnswIndex
+from .index.sharded import ShardedHnswIndex
 from .index.serialize import dumpall, get_index_kind, load_index
 from .io.fasta import concat_file_codes_packed, file_records_codes, read_file_bytes
 from .io.walk import bounded_thread_map, iter_file_buffers, walk_fasta_dir
@@ -163,14 +167,16 @@ def _sketch_dir(
 
 
 def _new_index(params: ProcessingParams, sig_dtype, kind: str, nb_hint: int,
-               device: torch.device):
+               device: torch.device, n_shards: int = 0):
+    """A flat or graph index; a graph index with n_shards > 1 is the
+    sharded kind, as a `--mesh N` build of gsearch_tpu writes it."""
     if kind == "auto":
         kind = "flat" if nb_hint <= flat_auto_limit(params.sketch.sketch_size) else "hnsw"
     if kind == "flat":
         return FlatIndex(params.sketch.sketch_size, sig_dtype, device)
     if kind != "hnsw":
         raise ValueError(f"unknown index kind {kind!r}")
-    return HnswIndex(
+    hkw = dict(
         sketch_size=params.sketch.sketch_size,
         sig_dtype=sig_dtype,
         max_nb_conn=params.hnsw.max_nb_conn,
@@ -178,6 +184,9 @@ def _new_index(params: ProcessingParams, sig_dtype, kind: str, nb_hint: int,
         scale_modification=params.hnsw.scale_modification,
         device=device,
     )
+    if n_shards > 1:
+        return ShardedHnswIndex(n_shards=n_shards, **hkw)
+    return HnswIndex(**hkw)
 
 
 def build_database(genome_dir: str, out_dir: str, params: ProcessingParams,
@@ -195,6 +204,9 @@ def build_database(genome_dir: str, out_dir: str, params: ProcessingParams,
     index = _new_index(params, sig_mat.dtype, index_kind, len(sigs), device)
     with timer.stage("index_insert"):
         index.insert(sig_mat)
+    if index.nb_points != len(seqdict):
+        raise ValueError(f"index holds {index.nb_points} points after the insert, seqdict "
+                         f"{len(seqdict)}")
     state = ProcessingState(
         nb_seq=len(seqdict),
         nb_file=len({i.id.path for i in seqdict}),
@@ -262,12 +274,13 @@ def read_genomes(genome_dir: str, is_aa: bool = False) -> list:
             for p in walk_fasta_dir(genome_dir, is_aa=is_aa)]
 
 
-def empty_index_like(db_dir: str, kind: str, *, device: torch.device):
-    """An empty index of `kind` ("flat" or "hnsw") with the parameters and
-    signature type of the database at db_dir."""
+def empty_index_like(db_dir: str, kind: str, *, device: torch.device, n_shards: int = 0):
+    """An empty index of `kind` ("flat" or "hnsw"; "hnsw" with n_shards > 1
+    the sharded graph index) with the parameters and signature type of the
+    database at db_dir."""
     params = ProcessingParams.reload_json(db_dir)
     sig_dtype = np.dtype(get_index_kind(db_dir)["sig_dtype"])
-    return _new_index(params, sig_dtype, kind, 0, device)
+    return _new_index(params, sig_dtype, kind, 0, device, n_shards=n_shards)
 
 
 def dump_with_placeholders(src_dir: str, out_dir: str, index) -> None:

@@ -308,3 +308,82 @@ def test_kernels_on_unsigned_signatures(cuda_device, dtype):
     ids = torch.from_numpy(rng.integers(0, 300, size=(9, 40)).astype(np.int32)).to(cuda_device)
     for form in tdist.K2_FORMS:
         assert _same(tdist.gather_hamming(tdb, tq, ids, form=form), tdist.gather_hamming_plain(tdb, tq, ids))
+
+
+@pytest.mark.parametrize("nq", [1, 256])
+def test_k1_at_the_coreset_sweep_shapes(cuda_device, nq):
+    """The coreset's sweeps: [1, 65,536] (a draw round) and [256, 65,536]
+    (the assignment) at S = 12,000, and the medoid block [256, 256]."""
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    db = (torch.rand((65536, 12000), generator=gen, device=cuda_device) * 4).to(torch.int32)
+    q = db[torch.randint(0, 65536, (nq,), generator=gen, device=cuda_device)].contiguous()
+    q[:, ::3] = 7
+    assert _same(tdist.hamming_frac(q, db), tdist.hamming_frac_plain(q, db))
+    if nq == 256:
+        assert _same(tdist.hamming_frac(q, q), tdist.hamming_frac_plain(q, q))
+
+
+def test_coreset_on_card_matches_cpu(cuda_device):
+    from gsearch_tpu_torch.analysis.coreset import build_coreset, cluster_coreset
+
+    rng = np.random.default_rng(22)
+    sigs = _cloud(rng, 3000, 1024, 24)
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        core = build_coreset(sigs, 128, device=dev)
+        res[dev.type] = (core, cluster_coreset(sigs, core, 8, device=dev))
+    for a, b in zip(res["cuda"], res["cpu"]):
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_array_equal(a.assignment, b.assignment)
+        assert a.cost == b.cost
+
+
+def test_embed_optimize_on_card_matches_cpu(cuda_device):
+    """Three full-batch steps with the same negatives: within 1e-4 of the
+    CPU's (the bound the reference is held to, tests/test_torch_embed.py);
+    two runs on the card are equal (the per-destination sums are
+    segment_reduce, not atomics)."""
+    from gsearch_tpu_torch.analysis.embed import Embedder, EmbedderParams
+    from gsearch_tpu_torch.analysis.kgraph import KGraph
+
+    rng = np.random.default_rng(23)
+    n, k = 2000, 8
+    nbrs = np.stack([(np.arange(n) + 1 + rng.integers(0, 20, n)) % n for _ in range(k)], 1).astype(np.int32)
+    dist = np.sort(rng.random((n, k)).astype(np.float32), 1)
+    kg = KGraph(nbrs, dist)
+    params = EmbedderParams(nb_grad_batch=1, epochs_per_batch=3)
+    negs = torch.randint(0, n, (3, 10, n * k), generator=torch.Generator().manual_seed(5))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        emb = Embedder(kg, params, device=dev)
+        w = emb._edge_weights()
+        y0 = emb._dmap_init(w, nbrs)
+        out[dev.type] = emb._optimize(nbrs, w, y0, rng_seed=1, negatives=negs)
+        if dev.type == "cuda":
+            np.testing.assert_array_equal(emb._optimize(nbrs, w, y0, rng_seed=1, negatives=negs), out["cuda"])
+            drawn = emb._optimize(nbrs, w, y0, rng_seed=1)
+            np.testing.assert_array_equal(emb._optimize(nbrs, w, y0, rng_seed=1), drawn)
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=0, atol=1e-4)
+
+
+def test_seed_sketch_and_sharded_search_on_card_match_cpu(cuda_device):
+    from gsearch_tpu_torch.index.sharded import ShardedHnswIndex
+    from gsearch_tpu_torch.models.seedchain import SeedChainer
+
+    rng = np.random.default_rng(24)
+    g = rng.integers(0, 4, (1 << 22) + 70_000).astype(np.uint8)
+    g[1000:3000] = 255
+    a, b = SeedChainer(device=cuda_device).sketch(g), SeedChainer(device=torch.device("cpu")).sketch(g)
+    np.testing.assert_array_equal(a.hashes, b.hashes)
+    np.testing.assert_array_equal(a.positions, b.positions)
+    sigs = _cloud(rng, 4216, 256, 32)
+    kw = dict(sketch_size=256, sig_dtype=np.uint32, n_shards=2, max_nb_conn=16, ef_construction=64,
+              search_prefix=128)
+    res = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        idx = ShardedHnswIndex(**kw, device=dev)
+        idx.insert(sigs[:-16], batch_size=512)
+        res[dev.type] = idx.search(sigs[-16:], 10)
+        assert {sh.stats["search"]["route"] for sh in idx.shards} == {"beam"}
+    np.testing.assert_array_equal(res["cuda"][1], res["cpu"][1])
+    np.testing.assert_array_equal(res["cuda"][0].view(np.uint32), res["cpu"][0].view(np.uint32))

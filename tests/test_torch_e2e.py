@@ -113,11 +113,11 @@ def test_add_then_request(recipe, tmp_path):
 def test_unported_paths_raise(recipe, tmp_path):
     root, _ = recipe
     db = str(root / "db_genomes")
-    sharded = tmp_path / "sharded"
-    shutil.copytree(root / "db_torch", sharded)
-    (sharded / "index.meta.json").write_text('{"kind": "hnsw_sharded"}')
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main(["request", "-b", str(sharded), "-n", "5", "-r", str(root / "queries"),
+    unknown = tmp_path / "unknown"
+    shutil.copytree(root / "db_torch", unknown)
+    (unknown / "index.meta.json").write_text('{"kind": "bigsi"}')
+    with pytest.raises(ValueError, match="unknown index kind"):
+        torch_main(["request", "-b", str(unknown), "-n", "5", "-r", str(root / "queries"),
                     "-o", str(tmp_path / "o"), "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="mesh"):
         torch_main(["--mesh", "2", "tohnsw", "-d", db, *BUILD, "-o", str(tmp_path / "m"), "--device", "cpu"])

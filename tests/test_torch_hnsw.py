@@ -264,12 +264,6 @@ def test_cross_package_hnsw_databases(beam_graphs, tmp_path):
     assert (tmp_path / "j2" / "index.meta.json").read_text() == meta
 
 
-def test_hnsw_sharded_kind_raises(tmp_path):
-    (tmp_path / "index.meta.json").write_text('{"kind": "hnsw_sharded"}')
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_load(str(tmp_path), CPU)
-
-
 def test_estimator_only_coarse_fallback_pool_matches_reference(rng, monkeypatch):
     """With COARSE_BYTES below the coarse searcher's full representation,
     both packages fall back to an estimator-only pool searcher over the

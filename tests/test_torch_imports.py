@@ -11,7 +11,11 @@ import os
 import numpy as np
 import pytest
 
+from gsearch_tpu_torch.analysis.coreset import build_coreset
+from gsearch_tpu_torch.analysis.embed import Embedder
 from gsearch_tpu_torch.core.params import SeqSketcherParams
+from gsearch_tpu_torch.index.sharded import ShardedHnswIndex
+from gsearch_tpu_torch.models.seedchain import SeedChainer
 from gsearch_tpu_torch.index import FlatIndex, HnswIndex, from_jax_database
 from gsearch_tpu_torch.models import make_sketcher
 from gsearch_tpu_torch.models.optdens import OptDensSketcher
@@ -27,6 +31,10 @@ def _banned(name: str) -> bool:
 
 def test_sources_found():
     assert len(SOURCES) > 30
+    rel = {os.path.relpath(p, REPO) for p in SOURCES}
+    for mod in ("index/sharded.py", "analysis/kgraph.py", "analysis/coreset.py", "analysis/embed.py",
+                "models/seedchain.py", "cli/hnsw2knn.py", "cli/hnswcore.py", "cli/superani.py"):
+        assert f"gsearch_tpu_torch/{mod}" in rel, mod
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: os.path.relpath(p, REPO))
@@ -62,3 +70,11 @@ def test_entry_points_require_a_device(tmp_path):
         from_jax_database(str(tmp_path))
     with pytest.raises(TypeError, match="device"):
         HnswIndex.from_jax(object())
+    with pytest.raises(TypeError, match="device"):
+        ShardedHnswIndex(sketch_size=64, sig_dtype=np.float32, n_shards=2)
+    with pytest.raises(TypeError, match="device"):
+        SeedChainer()
+    with pytest.raises(TypeError, match="device"):
+        Embedder(None)
+    with pytest.raises(TypeError, match="device"):
+        build_coreset(np.zeros((4, 8), np.float32), 2)
