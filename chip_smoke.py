@@ -100,6 +100,31 @@ CUDA card it exits non-zero before printing any result.
      call held against the plain version; 64 sparse genomes of 600 bases
      through prob's sketcher on the card and the CPU: found slots equal,
      the share of genomes whose empty slots differ under 0.35.
+  bigsig. `bigsig construct` over phase 4's 48 genomes at the defaults
+     (bloom 25,000,000, 2 hashes, k = 21); `identify` of 262,144 seeded
+     256-base reads (7/8 exact N-free substrings of the genomes, 1/8
+     random): every exact read's source holds its largest hit count, at
+     most 1% of random reads classified; 65,536 FASTQ pairs (600-base
+     fragments, second mate reverse-complemented, 1% substitutions, 0.5%
+     of qualities under -Q 15): at least half classified, 99% of those to
+     their source; one batch's counts on the card equal the CPU path's;
+     the counts pass over every read timed at 48 genome columns and with
+     the device matrix widened to 1,024 columns (seeded random bits at the
+     real genomes' mean fill), the real columns' counts unchanged.
+  import. phase 4's 48 signatures plus the sharded phase's clustered
+     decoys to 65,536 x 12,000 f32 (GTDB r207 scale), written as a
+     reference-format (hnsw_rs) dump; CLI `import --index auto` (flat) and
+     `--index hnsw` (the bulk build), each then CLI `request -n 10` of
+     phase 4's queries: both neighbours files byte-identical to phase 4's;
+     each import's read / build / dump and the build's passes timed.
+  hmmsearch. 120 seeded HMMER3 profiles of 100-1,000 nodes (`*` at the
+     last node, GA and STATS lines) and a proteome of 512 proteins of
+     50-1,500 residues (an eighth of a bacterial proteome: at 1,024 the
+     phase took 64 s on an H100), 120 of them carrying a profile's sampled
+     sequence at 20% mutation: CLI `hmmsearch --cut_ga` puts each planted protein at
+     the top of its profile; Viterbi and Forward of the 8 shortest profiles
+     x 64 proteins (their planted ones among them) on the card within
+     HMM_BITS_RTOL of the CPU path; DP cells a second an algorithm.
   K2 sites.  Each recorded call is re-run with its own arguments: every
      form bitwise against the plain version, timed under each form, the
      plan's and the plain version (CUDA events; device-only time from
@@ -111,7 +136,10 @@ hnsw-build to hnsw-add (K2 parts=2 and K1's self pairs in the bulk build,
 K2 and the int8 matmul in the request, K1 and its self pairs in the add);
 tiers (K2 parts=4 and 8); sharded (K2 in the shards' beam hops, K1's
 self pairs in the add); analysis (K1 in the coreset, K2 and the int8
-matmul in the k-NN self-search); superani (none: plain torch);
+matmul in the k-NN self-search); superani (none: plain torch); bigsig
+(none: plain torch); import (K2 parts=2 and K1's self pairs in the bulk
+build, K2 and the int8 matmul in the requests); hmmsearch (none: plain
+torch);
 algos (K1 by every build's request and by bindash, K2 and the int8 matmul
 by the grown databases).  The line before the last
 is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -149,7 +177,16 @@ FULL = {
     "grown_total": 8192, "piece_log2": 16, "piece_len": 300_000,
     "shard_total": 65536, "n_shards": 4, "shard_queries": 1024, "knn_batch": 4096,
     "coreset": 256, "cluster": 16, "sparse_genomes": 64, "sparse_len": 600,
+    "bigsig": {"bloom": 25_000_000, "reads": 262_144, "read_len": 256, "pairs": 65_536,
+               "batch": 4096, "columns": 1024},
+    "import_total": 65536,
+    "hmm_profiles": 120, "hmm_lengths": (100, 1001), "proteome": 512, "prot_lengths": (50, 1501),
+    "hmm_check": (8, 64),
 }
+# profile-HMM bits on the card against the CPU path: |diff| <= this x
+# max(|bits|, 1), the bound tests/test_torch_hmmsearch.py holds the CPU path
+# to gsearch_tpu by (4x the largest difference measured there)
+HMM_BITS_RTOL = 1.4e-5
 # the tiers' lane counts at S = 12000 (hnsw._rerank_tier widths / parts)
 K2P_LANES = {2: 12288 // 2, 4: 12288 // 4, 8: 16384 // 8}
 
@@ -1284,6 +1321,440 @@ def phase_superani(dev, cfg, root, p4) -> dict:
             "pairs": pairs}
 
 
+def _fasta_reads(path: str, names, reads: np.ndarray) -> None:
+    """Write reads (uint8 codes [R, L]) as FASTA, one record a read."""
+    text = _LUT[reads]
+    with open(path, "wb") as f:
+        for name, row in zip(names, text):
+            f.write(b">" + name.encode() + b"\n" + row.tobytes() + b"\n")
+
+
+def _fastq_reads(path: str, names, reads: np.ndarray, quals: np.ndarray) -> None:
+    text = _LUT[reads]
+    with open(path, "wb") as f:
+        for name, row, q in zip(names, text, quals):
+            f.write(b"@" + name.encode() + b"\n" + row.tobytes() + b"\n+\n" + q.tobytes() + b"\n")
+
+
+def draw_reads(genomes: list, n: int, length: int, rng) -> tuple:
+    """n windows of `length` bases free of invalid codes: (reads [n, length],
+    source genome index [n]); genomes drawn uniformly."""
+    src = rng.integers(0, len(genomes), n)
+    out = np.empty((n, length), np.uint8)
+    for g, codes in enumerate(genomes):
+        rows = np.nonzero(src == g)[0]
+        bad = np.concatenate([[0], np.cumsum(codes >= 4)])
+        starts = np.empty(0, np.int64)
+        while len(starts) < len(rows):
+            s = rng.integers(0, len(codes) - length, 2 * len(rows) + 16)
+            starts = np.concatenate([starts, s[bad[s + length] == bad[s]]])
+        out[rows] = codes[starts[: len(rows), None] + np.arange(length)]
+    return out, src
+
+
+def _revcomp(reads: np.ndarray) -> np.ndarray:
+    return (3 - reads[:, ::-1]).astype(np.uint8)
+
+
+def _counts_by_read(path: str) -> dict:
+    """{read id: [(genome, hits, corrected fraction), ...]} of _reads.txt."""
+    rows = {}
+    with open(path) as f:
+        next(f)
+        for line in f:
+            rid, genome, hits, _, frac = line.rstrip("\n").split("\t")
+            rows.setdefault(rid, []).append((genome, int(hits), float(frac)))
+    return rows
+
+
+def widen_bigsi(idx, columns: int, gen) -> None:
+    """Grow the index's device matrix to `columns` genomes: the real words
+    kept, every further genome's bits set at random with the real genomes'
+    mean fill (drawn on the device, a block of rows at a time)."""
+    real = idx.device_bits()
+    rows, nw_real = real.shape
+    nw = -(-columns // 32)
+    fill = float(np.mean(idx._ones_per_genome)) / idx.bloom_len
+    wide = torch.empty((rows, nw), dtype=torch.int32, device=real.device)
+    shifts = torch.arange(32, dtype=torch.int64, device=real.device)
+    first_free = idx.nb_genomes
+    keep = torch.zeros(nw, dtype=torch.int64, device=real.device)  # bits of the real genomes
+    for j in range(first_free):
+        keep[j // 32] |= 1 << (j % 32)
+    step = 1 << 18
+    for r0 in range(0, rows, step):
+        bits = torch.rand((min(step, rows - r0), nw, 32), generator=gen, device=real.device) < fill
+        words = (bits.to(torch.int64) << shifts).sum(-1) & ~keep
+        words[:, :nw_real] |= real[r0 : r0 + step].to(torch.int64) & 0xFFFFFFFF
+        wide[r0 : r0 + step] = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    idx._device_bits = wide
+    idx.names += [f"random{j}" for j in range(first_free, columns)]
+    idx._ones_per_genome += [int(fill * idx.bloom_len)] * (columns - first_free)
+
+
+class CallRecorder:
+    """While active, every call of the named methods (or module functions)
+    of `owner` is recorded as (name, seconds, keep(args, result)), keep
+    returning the result unless given; `seconds(name)` sums one method's
+    wall time (a method called by another counts in both)."""
+
+    def __init__(self, owner, *names, keep=lambda args, out: out):
+        self.owner, self.names, self.keep, self.calls = owner, names, keep, []
+
+    def __enter__(self):
+        self.real = {name: getattr(self.owner, name) for name in self.names}
+
+        def wrap(name, fn):
+            def wrapper(*args, **kw):
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                self.calls.append((name, time.perf_counter() - t0, self.keep(args, out)))
+                return out
+            return wrapper
+
+        for name, fn in self.real.items():
+            setattr(self.owner, name, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.owner, name, fn)
+        return False
+
+    def seconds(self, name: str) -> float:
+        return sum(sec for n, sec, _ in self.calls if n == name)
+
+
+def phase_bigsig(dev, cfg, root, p4) -> dict:
+    """BIGSI read classification at the CLI defaults over phase 4's genomes:
+    construct; identify single-end reads (7/8 exact substrings, 1/8
+    random) and FASTQ read pairs at 1% substitutions; a batch's counts on
+    the card against the CPU path; the device pass timed at the real
+    genome count and with the matrix widened to 1,024 genome columns."""
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.index.bigsi import BigsiIndex
+    from gsearch_tpu_torch.io.fasta import concat_file_codes
+    from gsearch_tpu_torch.io.walk import walk_fasta_dir
+
+    bc = cfg["bigsig"]
+    prefix = os.path.join(root, "bigsi")
+    t0 = time.perf_counter()
+    # positions: the device pass a genome and its copy to the host; the
+    # rest of insert_genome is the host matrix's bit update
+    with CallRecorder(BigsiIndex, "_genome_positions", "insert_genome", "save",
+                      keep=lambda args, out: None) as parts:
+        if main(["bigsig", "construct", "-r", p4["db_dir"], "-b", prefix, "--bloom", str(bc["bloom"]),
+                 "--device", dev.type]) != 0:
+            raise AssertionError("bigsig construct failed")
+    t_construct = time.perf_counter() - t0
+    paths = walk_fasta_dir(p4["db_dir"])
+    genomes = [concat_file_codes(p)[0] for p in paths]
+    mbases = sum(len(g) for g in genomes) / 1e6
+
+    rng = np.random.default_rng(SEED + 5)
+    n, length = bc["reads"], bc["read_len"]
+    n_exact = n - n // 8
+    reads = np.empty((n, length), np.uint8)
+    reads[:n_exact], src = draw_reads(genomes, n_exact, length, rng)
+    reads[n_exact:] = rng.integers(0, 4, (n - n_exact, length), dtype=np.uint8)
+    order = rng.permutation(n)  # exact and random reads interleaved
+    reads, is_exact = reads[order], order < n_exact
+    source = np.full(n, -1)
+    source[is_exact] = src[order[is_exact]]
+    names = [f"r{i}" for i in range(n)]
+    _fasta_reads(os.path.join(root, "reads.fa"), names, reads)
+    t0 = time.perf_counter()
+    if main(["bigsig", "identify", "-b", prefix, "-q", os.path.join(root, "reads.fa"), "-o",
+             os.path.join(root, "se"), "--device", dev.type]) != 0:
+        raise AssertionError("bigsig identify (single-end) failed")
+    t_identify = time.perf_counter() - t0
+    rows = _counts_by_read(os.path.join(root, "se_reads.txt"))
+    for i in np.nonzero(is_exact)[0]:
+        hits = rows.get(names[i], [])
+        want = paths[source[i]]
+        top = max((h for _, h, _ in hits), default=-1)
+        if not any(g == want and h == top for g, h, _ in hits):
+            raise AssertionError(f"bigsig: exact read {names[i]} of {want}: the source does not hold "
+                                 f"the largest hit count ({hits})")
+    random_hit = sum(names[i] in rows for i in np.nonzero(~is_exact)[0]) / max(int((~is_exact).sum()), 1)
+    if random_hit > 0.01:
+        raise AssertionError(f"bigsig: {random_hit:.4f} of random reads classified (at most 0.01)")
+
+    # read pairs: mates at the two ends of a 600-base fragment, the second
+    # reverse-complemented, 1% substitutions, 0.5% of qualities under -Q 15
+    n_pairs = bc["pairs"]
+    frags, psrc = draw_reads(genomes, n_pairs, 600, rng)
+    mates = [_mutate(m.ravel(), 0.01, rng).reshape(m.shape)
+             for m in (frags[:, :length], _revcomp(frags[:, -length:]))]
+    pnames = [f"p{i}" for i in range(n_pairs)]
+    files = []
+    for m, codes in enumerate(mates):
+        quals = np.full(codes.shape, ord("I"), np.uint8)
+        quals[rng.random(codes.shape) < 0.005] = ord("#")
+        files.append(os.path.join(root, f"pairs_{m + 1}.fq"))
+        _fastq_reads(files[-1], pnames, codes, quals)
+    t0 = time.perf_counter()
+    if main(["bigsig", "identify", "-b", prefix, "-q", *files, "-o", os.path.join(root, "pe"),
+             "--device", dev.type]) != 0:
+        raise AssertionError("bigsig identify (paired-end) failed")
+    t_paired = time.perf_counter() - t0
+    prow = _counts_by_read(os.path.join(root, "pe_reads.txt"))
+    classified = [i for i in range(n_pairs) if pnames[i] in prow]
+    right = sum(prow[pnames[i]][0][0] == paths[psrc[i]] for i in classified)
+    if len(classified) < 0.5 * n_pairs or right < 0.99 * len(classified):
+        raise AssertionError(f"bigsig paired-end: {len(classified)} of {n_pairs} pairs classified, "
+                             f"{right} of them to their source")
+
+    idx = BigsiIndex.load(prefix, device=dev)
+    batch = bc["batch"]
+    card = idx.raw_counts(reads[:batch])
+    cpu = BigsiIndex.load(prefix, device=torch.device("cpu")).raw_counts(reads[:batch])
+    if not all(np.array_equal(a, b) for a, b in zip(card, cpu)):
+        raise AssertionError("bigsig: raw counts on the card differ from the CPU path's")
+
+    def counts_pass():
+        out = [idx.raw_counts(reads[b : b + batch])[0] for b in range(0, n, batch)]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out
+
+    counts_pass()  # warm-up
+    t0 = time.perf_counter()
+    base = counts_pass()
+    t_real = time.perf_counter() - t0
+    nb_real = idx.nb_genomes
+    widen_bigsi(idx, bc["columns"], torch.Generator(device=dev).manual_seed(SEED + 6))
+    counts_pass()
+    t0 = time.perf_counter()
+    wide = counts_pass()
+    t_wide = time.perf_counter() - t0
+    for a, b in zip(base, wide):
+        if b.shape[1] != bc["columns"] or not np.array_equal(a, b[:, :nb_real]):
+            raise AssertionError("bigsig: the real genomes' counts changed when the matrix was widened")
+    matrix_gb = idx.device_bits().numel() * 4 / 1e9
+    del idx, wide, base
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"phase bigsig {len(paths)} genomes ({mbases:.1f} Mbases), bloom {bc['bloom']}: every exact "
+          f"read's source holds its largest hit count; {random_hit:.5f} of random reads classified; "
+          f"{len(classified)} of {n_pairs} pairs classified, {right} to their source; a batch's counts "
+          f"on the card equal the CPU's; widened to {bc['columns']} columns ({matrix_gb:.2f} GB on the "
+          f"device), the {nb_real} real columns' counts unchanged")
+    inserts, save = parts.seconds("insert_genome"), parts.seconds("save")
+    return {"construct_s": t_construct, "construct_parts": {
+                "positions": parts.seconds("_genome_positions"),
+                "host bit update": inserts - parts.seconds("_genome_positions"), "save": save,
+                "walk and parse": t_construct - inserts - save},
+            "mbases": mbases, "identify_s": t_identify, "reads": n,
+            "paired_s": t_paired, "pairs": n_pairs, "pass_real_s": t_real, "pass_wide_s": t_wide,
+            "nb_real": nb_real, "columns": bc["columns"], "matrix_gb": matrix_gb}
+
+
+def write_reference_dump(out: str, sigs: np.ndarray, src_db: str) -> None:
+    """A reference-format (hnsw_rs) database dump of sigs [n, S] f32: the
+    data file as [u32 magic][u64 DataId][u64 length][payload] records, a
+    graph description naming DistHamming and f32, the streamed seqdict
+    (the database at src_db's genomes first, then placeholder decoys), its
+    parameters.json and a processing_state.json."""
+    import struct
+
+    from gsearch_tpu_torch.core import ProcessingParams, ProcessingState, SeqDict
+
+    os.makedirs(out)
+    n, s = sigs.shape
+    with open(os.path.join(out, "hnswdump.hnsw.data"), "wb") as f:
+        for i in range(n):
+            f.write(struct.pack("<IQQ", 0xA67F0CAF, i, s))
+            f.write(sigs[i].tobytes())
+    with open(os.path.join(out, "hnswdump.hnsw.graph"), "wb") as f:
+        f.write(struct.pack("<IBBBQQQ", 0x2A3B4C5D, 1, 32, 16, 200, n, s)
+                + struct.pack("<Q", 11) + b"DistHamming" + struct.pack("<Q", 3) + b"f32" + b"\0" * 64)
+    real = SeqDict.reload_json(src_db)
+    with open(os.path.join(out, "seqdict.json"), "w") as f:
+        for i in range(n):
+            if i < len(real):
+                item = real[i]
+                entry = {"id": {"path": item.id.path, "fasta_id": item.id.fasta_id}, "len": item.len}
+            else:
+                entry = {"id": {"path": f"decoys/d{i}.fna", "fasta_id": f"d{i}"}, "len": 0}
+            f.write(json.dumps(entry))
+    ProcessingParams.reload_json(src_db).dump_json(out)
+    ProcessingState(nb_seq=n, nb_file=n, elapsed_t=0.0).dump_json(out)
+
+
+def phase_import(dev, cfg, root, p4) -> dict:
+    """A reference-format dump at GTDB r207 scale (phase 4's genomes plus
+    the sharded phase's clustered decoys) imported by the CLI as a flat and
+    as a graph database, each requested by phase 4's queries."""
+    import gsearch_tpu_torch.index.refimport as refimport
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.index.serialize import load_index
+
+    flat = load_index(p4["db"], dev)
+    n_real, s, n = flat.nb_points, flat.sketch_size, cfg["import_total"]
+    sigs = np.empty((n, s), np.float32)
+    sigs[:n_real] = flat.get_sigs()
+    del flat
+    make_decoys(dev, cfg, sigs[n_real:], torch.Generator(device=dev).manual_seed(SEED + 4))
+    ref = os.path.join(root, "refdb")
+    t0 = time.perf_counter()
+    write_reference_dump(ref, sigs, p4["db"])
+    t_write = time.perf_counter() - t0
+    del sigs
+    res = {"write_s": t_write, "gb": os.path.getsize(os.path.join(ref, "hnswdump.hnsw.data")) / 1e9}
+    for kind in ("auto", "hnsw"):
+        db = os.path.join(root, f"db_import_{kind}")
+        t0 = time.perf_counter()
+        with CallRecorder(refimport, "import_reference_db") as rec:
+            if main(["import", "-b", ref, "-o", db, "--index", kind, "--device", dev.type]) != 0:
+                raise AssertionError(f"import --index {kind} failed")
+        wall = time.perf_counter() - t0
+        summary = rec.calls[0][2]
+        if summary["nb_points"] != n or summary["index_kind"] != ("flat" if kind == "auto" else "hnsw"):
+            raise AssertionError(f"import --index {kind}: {summary}")
+        out = os.path.join(root, f"req_import_{kind}")
+        t_req = _cli_request(dev, cfg, db, p4["q_dir"], out)
+        with open(p4["neighbours"]) as a, open(os.path.join(out, "gsearch.neighbors.txt")) as b:
+            want, got = a.read(), b.read()
+        if got != want:
+            diff = "".join(list(difflib.unified_diff(
+                want.splitlines(True), got.splitlines(True), "48 genomes", f"import {kind}"))[:60])
+            raise AssertionError(f"neighbours file of the imported {kind} database differs from phase 4's:\n{diff}")
+        shutil.rmtree(db)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        res[summary["index_kind"]] = {"wall_s": wall, "stages": summary["stages"],
+                                      "passes": summary["build_passes"], "request_s": t_req}
+    shutil.rmtree(ref)
+    print(f"phase import {n} x {s} f32 ({res['gb']:.2f} GB dump): CLI import as flat and as hnsw, "
+          f"request of phase 4's queries against each byte-identical to phase 4's file")
+    return res
+
+
+def _nl(p: np.ndarray) -> list:
+    """-ln p as HMMER writes it, `*` for zero."""
+    with np.errstate(divide="ignore"):
+        v = -np.log(p)
+    return ["*" if not np.isfinite(x) else f"{x:.5f}" for x in v]
+
+
+def write_hmm_profiles(out: str, cfg, rng) -> list:
+    """cfg's HMMER3/f profiles, one .HMM file each: match emissions put
+    0.35-0.85 on a consensus residue drawn from the background and the rest
+    on the background; per-node transitions around HMMER's typical values,
+    `*` for the last node's m->d and d->d; GA (a quarter bit a node, at
+    least 25) and STATS lines.  Returns each profile's match emission
+    probabilities [L, 20]."""
+    from gsearch_tpu_torch.models.hmmprofile import BG_FREQ, HMM_ALPHABET
+
+    os.makedirs(out)
+    bg = " ".join(_nl(BG_FREQ))
+    emissions = []
+    for h, length in enumerate(rng.integers(*cfg["hmm_lengths"], cfg["hmm_profiles"])):
+        length = int(length)
+        cons = rng.choice(20, length, p=BG_FREQ / BG_FREQ.sum())
+        top = rng.uniform(0.35, 0.85, length)[:, None]
+        em = (1 - top) * BG_FREQ[None, :] / (1 - BG_FREQ[cons])[:, None]
+        em[np.arange(length), cons] = top[:, 0]
+        emissions.append(em)
+        mi, md = rng.uniform(0.005, 0.05, (2, length))
+        ii, dd = rng.uniform(0.2, 0.6, length), rng.uniform(0.1, 0.5, length)
+        tr = np.stack([1 - mi - md, mi, md, 1 - ii, ii, 1 - dd, dd], 1)
+        tr[-1] = (0.99, 0.01, 0.0, 0.6, 0.4, 1.0, 0.0)
+        name = f"TIGR{h:05d}"
+        lines = ["HMMER3/f [3.3 | Nov 2019]", f"NAME  {name}", f"ACC   {name}.1",
+                 f"DESC  synthetic marker {h}", f"LENG  {length}", "ALPH  amino",
+                 f"GA    {max(25.0, 0.25 * length):.2f} {max(25.0, 0.25 * length):.2f};",
+                 "STATS LOCAL MSV      -10.1000  0.70000",
+                 "STATS LOCAL VITERBI  -10.9000  0.70000",
+                 "STATS LOCAL FORWARD   -4.5000  0.70000",
+                 "HMM          " + "        ".join(HMM_ALPHABET),
+                 "            m->m     m->i     m->d     i->m     i->i     d->m     d->d",
+                 "  COMPO   " + bg, "          " + bg,
+                 "          " + " ".join(_nl(np.array([0.98, 0.01, 0.01, 0.6, 0.4, 1.0, 0.0])))]
+        for k in range(length):
+            lines.append(f"  {k + 1:5d}   " + " ".join(_nl(em[k])) + f"  {k + 1} {HMM_ALPHABET[cons[k]].lower()} - - -")
+            lines.append("          " + bg)
+            lines.append("          " + " ".join(_nl(tr[k])))
+        lines.append("//")
+        with open(os.path.join(out, f"{name}.HMM"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return emissions
+
+
+def phase_hmmsearch(dev, cfg, root) -> dict:
+    """hmmsearch --cut_ga of a seeded proteome against cfg's profiles (each
+    planted protein the top row of its profile); Viterbi and Forward scores
+    of 8 profiles x 64 proteins on the card within the CPU test's bound of
+    the CPU path; cells a second an algorithm."""
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.models.hmmprofile import HmmSearcher, parse_hmmer3
+
+    rng = np.random.default_rng(SEED + 7)
+    hmm_dir = os.path.join(root, "markers")
+    emissions = write_hmm_profiles(hmm_dir, cfg, rng)
+    n_prot, (lo, hi) = cfg["proteome"], cfg["prot_lengths"]
+    prots = [AA_LETTERS[rng.integers(0, 20, int(n))] for n in rng.integers(lo, hi, n_prot)]
+    planted = rng.choice(n_prot, len(emissions), replace=False)
+    for h, (i, em) in enumerate(zip(planted, emissions)):
+        sample = np.minimum((em.cumsum(1) < rng.random(len(em))[:, None]).sum(1), 19)
+        hit = rng.random(len(sample)) < 0.2
+        sample[hit] = rng.integers(0, 20, int(hit.sum()))
+        flank = int(rng.integers(0, max(hi - len(sample), 0) + 1)) // 2
+        left = int(rng.integers(0, flank + 1))
+        prots[i] = np.concatenate([AA_LETTERS[rng.integers(0, 20, left)], AA_LETTERS[sample],
+                                   AA_LETTERS[rng.integers(0, 20, flank - left)]])
+    faa = os.path.join(root, "proteome.faa")
+    with open(faa, "wb") as f:
+        for i, p in enumerate(prots):
+            f.write(b">prot%d\n" % i + p.tobytes() + b"\n")
+    tsv = os.path.join(root, "hmmsearch.tsv")
+    t0 = time.perf_counter()
+    with CallRecorder(HmmSearcher, "score", keep=lambda args, out: args[0].stats) as rec:
+        if main(["hmmsearch", "-f", faa, "-m", hmm_dir, "-o", tsv, "--cut_ga", "--device", dev.type]) != 0:
+            raise AssertionError("hmmsearch failed")
+    t_cli = time.perf_counter() - t0
+    names = sorted(f for f in os.listdir(hmm_dir))
+    top = {}
+    with open(tsv) as f:
+        next(f)
+        for line in f:
+            seq, prof = line.split("\t")[:2]
+            top.setdefault(prof, seq)
+    for h, i in enumerate(planted):
+        if top.get(f"TIGR{h:05d}") != f"prot{i}":
+            raise AssertionError(f"hmmsearch: the top row of TIGR{h:05d} is {top.get(f'TIGR{h:05d}')}, "
+                                 f"expected its planted prot{i}")
+
+    # card against CPU: the 8 shortest profiles, their planted proteins and
+    # the shortest others, to 64
+    profiles = [p for name in names for p in parse_hmmer3(os.path.join(hmm_dir, name))]
+    short = sorted(range(len(profiles)), key=lambda h: profiles[h].length)[: cfg["hmm_check"][0]]
+    pick = [int(planted[h]) for h in short]
+    pick += [i for i in np.argsort([len(p) for p in prots], kind="stable") if i not in pick]
+    pick = pick[: cfg["hmm_check"][1]]
+    seqs = [HmmSearcher.encode(prots[i].tobytes().decode()) for i in pick]
+    chosen = [profiles[h] for h in short]
+    worst = 0.0
+    for algo in ("viterbi", "forward"):
+        card = HmmSearcher(chosen, device=dev).score(seqs, algo)
+        cpu = HmmSearcher(chosen, device=torch.device("cpu")).score(seqs, algo)
+        bound_ = HMM_BITS_RTOL * np.maximum(np.abs(cpu.astype(np.float64)), 1.0)
+        if not np.isfinite(card).all() or (np.abs(card - cpu) > bound_).any():
+            raise AssertionError(f"hmmsearch {algo}: the card's bits differ from the CPU's beyond the bound "
+                                 f"(max |diff| {np.abs(card - cpu).max()})")
+        worst = max(worst, float((np.abs(card - cpu) / np.maximum(np.abs(cpu), 1.0)).max()))
+    # the CLI scores Forward, then Viterbi
+    timing = {algo: (sec, st["cells"], st["blocks"])
+              for algo, (_, sec, st) in zip(("forward", "viterbi"), rec.calls)}
+    print(f"phase hmmsearch {len(profiles)} profiles ({cfg['hmm_lengths'][0]}-{cfg['hmm_lengths'][1]} "
+          f"nodes) x {n_prot} proteins: hmmsearch --cut_ga puts each planted protein at the top of its "
+          f"profile; card vs CPU on {len(chosen)} x {len(seqs)}: |diff| / max(|bits|, 1) at most "
+          f"{worst:.3g} (bound {HMM_BITS_RTOL})")
+    return {"cli_s": t_cli, "timing": timing, "profiles": len(profiles), "proteins": n_prot,
+            "residues": int(sum(len(p) for p in prots)), "worst_rel": worst}
+
+
 AA_LETTERS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
 # sketchers whose card and CPU signatures must agree bit for bit; the others
 # take a log (float64 rounded to f32 on both sides) and may differ in
@@ -1796,12 +2267,31 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     print(f"main-path launches, superani: {superani_counts} (seed hashing is plain torch)")
     k2_sites += [ps["k2_site"], pa_["k2_site"]]
 
+    cuda_lib.reset_launches()
+    bg = timed("phase bigsig", phase_bigsig, dev, cfg, root, p4)
+    bigsig_counts = dict(cuda_lib.launches)
+    print(f"main-path launches, bigsig: {bigsig_counts} (gather / AND / popcount is plain torch)")
+    cuda_lib.reset_launches()
+    im = timed("phase import", phase_import, dev, cfg, root, p4)
+    import_counts = dict(cuda_lib.launches)
+    if dev.type == "cuda" and any(import_counts[k] == 0 for k in (
+            "gather_hamming", "int_mm", "gather_hamming_p2", "hamming_frac_self")):
+        raise AssertionError(f"the imports and their requests did not go through the bulk build (K2 "
+                             f"parts=2, K1's self pairs) and the searchers (K2, the int8 matmul): "
+                             f"{import_counts}")
+    print(f"main-path launches, import: {import_counts}")
+    cuda_lib.reset_launches()
+    hm = timed("phase hmmsearch", phase_hmmsearch, dev, cfg, root)
+    hmm_counts = dict(cuda_lib.launches)
+    print(f"main-path launches, hmmsearch: {hmm_counts} (the Plan7 recurrences are plain torch)")
+
     algos = timed("phase algos", phase_algos, dev, cfg, root, p4, card)
     print(f"main-path launches, algos: {algos['counts']}")
     k2_sites += algos["k2_sites"]
     k1_sites = algos["k1_sites"] + pa_["k1_sites"]
     launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] + sharded_counts[k]
-                + analysis_counts[k] + superani_counts[k] + algos["counts"][k] for k in flat_counts}
+                + analysis_counts[k] + superani_counts[k] + bigsig_counts[k] + import_counts[k]
+                + hmm_counts[k] + algos["counts"][k] for k in flat_counts}
 
     t = timed("phase 6", phase_timings, dev, cfg, p4, p5)
     k2_sites.insert(1, t["k2_site"])
@@ -1867,6 +2357,27 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     print(f"  timing superani on {card}: sketch {sa['mbases'] / sa['sketch_s']:.1f} Mbases/s "
           f"({sa['mbases']:.1f} Mbases, parsed), compare {sa['pairs'] / sa['compare_s']:.0f} pairs/s; "
           f"CLI {sa['cli_s']:.1f} s for {sa['pairs']} pairs")
+    parts = ", ".join(f"{k} {v:.2f} s" for k, v in bg["construct_parts"].items())
+    print(f"  timing bigsig on {card}: construct {bg['mbases']:.1f} Mbases in {bg['construct_s']:.1f} s "
+          f"CLI wall ({bg['mbases'] / bg['construct_s']:.1f} Mbases/s; {parts}); "
+          f"identify {bg['reads']} single-end reads {bg['identify_s']:.1f} s CLI wall "
+          f"({bg['reads'] / bg['identify_s']:.0f} reads/s), {bg['pairs']} pairs {bg['paired_s']:.1f} s; "
+          f"counts pass over the {bg['reads']} reads (batches of 4,096, 256 bases): {bg['nb_real']} "
+          f"columns {bg['reads'] / bg['pass_real_s']:.0f} reads/s, {bg['columns']} columns "
+          f"({bg['matrix_gb']:.2f} GB) {bg['reads'] / bg['pass_wide_s']:.0f} reads/s")
+    for kind in ("flat", "hnsw"):
+        ent = im[kind]
+        stages = ", ".join(f"{k} {v:.2f} s" for k, v in ent["stages"].items())
+        passes = ", ".join(f"{k} {v:.2f} s" for k, v in ent["passes"].items()) or "none"
+        print(f"  timing import on {card}: {kind} {cfg['import_total']} x {cfg['sketch']} "
+              f"({im['gb']:.2f} GB dump, written in {im['write_s']:.1f} s): CLI wall {ent['wall_s']:.1f} s "
+              f"({stages}); build passes: {passes}; CLI request of 8 {ent['request_s']:.1f} s")
+    for algo in ("forward", "viterbi"):
+        sec, cells, blocks = hm["timing"][algo]
+        print(f"  timing hmmsearch on {card}: {algo} {hm['profiles']} profiles x {hm['proteins']} proteins "
+              f"({hm['residues']} residues): {sec:.2f} s, {cells / sec:.4g} cells/s ({cells} cells, "
+              f"{blocks} blocks)")
+    print(f"  timing hmmsearch CLI on {card}: {hm['cli_s']:.1f} s (parse, both algorithms, TSV)")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
     src = "gsearch_tpu_torch/csrc/hamming.cu"
 

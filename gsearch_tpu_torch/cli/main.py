@@ -2,8 +2,9 @@
 
 The subcommands and flags of gsearch_tpu's CLI for the ported slice:
 tohnsw (all six sketching algorithms, DNA and `--aa`) / add / request /
-ann / reformat, and the tools bindash / hypermash / superaai / superani /
-hnsw2knn / hnswcore, forwarded to their own parsers; plus `--device`
+ann / import / reformat, and the tools bindash / hypermash / superaai /
+superani / hnsw2knn / hnswcore / bigsig / hmmsearch, forwarded to their
+own parsers; plus `--device`
 (default cuda; asking for cuda without a card raises, the CPU is asked
 for with --device cpu).  As in the
 reference, add/request take no algorithm flags: everything is reloaded
@@ -82,6 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
     n.add_argument("--knbn", type=int, default=8, help="k-NN graph width")
     n.add_argument("-o", "--out", default=".", help="output directory")
 
+    i = sub.add_parser("import", help="convert a reference-format database")
+    _add_global(i)
+    i.add_argument("-b", "--refdb", required=True, dest="ref_dir",
+                   help="reference database dir (hnswdump.hnsw.data + "
+                        "seqdict.json + parameters.json)")
+    i.add_argument("-o", "--out", required=True, help="output database dir")
+    i.add_argument("--index", default="auto", choices=["auto", "flat", "hnsw"])
+
     f = sub.add_parser("reformat", help="neighbors file -> TSV with ANI")
     f.add_argument("kmer", type=int)
     f.add_argument("model", type=int, help="1=Poisson, 2=Binomial")
@@ -101,6 +110,8 @@ TOOLS = {
     "superani": "gsearch_tpu_torch.cli.superani",
     "hnsw2knn": "gsearch_tpu_torch.cli.hnsw2knn",
     "hnswcore": "gsearch_tpu_torch.cli.hnswcore",
+    "bigsig": "gsearch_tpu_torch.cli.bigsig",
+    "hmmsearch": "gsearch_tpu_torch.cli.hmmsearch",
 }
 
 
@@ -152,6 +163,14 @@ def main(argv=None) -> int:
         res = build_database(args.dir, args.out, params, computing,
                              index_kind=args.index, device=device)
         print(f"built database with {res['nb_points']} points in {res['elapsed_s']:.1f}s")
+        return 0
+
+    if args.command == "import":
+        from ..index.refimport import import_reference_db
+
+        res = import_reference_db(args.ref_dir, args.out, index_kind=args.index, device=device)
+        print(f"imported {res['nb_points']} points "
+              f"({res['source_dtype']} sigs) -> {res['out']} ({res['index_kind']})")
         return 0
 
     if args.command == "add":

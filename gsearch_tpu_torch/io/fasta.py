@@ -5,7 +5,9 @@ gsearch_tpu/io/fasta.py, limited to what the port calls).
                                as one code array, records joined by one
                                invalid code (a k-mer break);
   - `concat_file_codes_packed` the same as PackedCodes for DNA;
-  - `file_records_codes`       per-record mode: one code array a record.
+  - `file_records_codes`       per-record mode: one code array a record;
+  - `parse_reads`              reads, FASTA or FASTQ by suffix, FASTQ
+                               bases under a phred cut masked to 'N'.
 Records whose header contains "capsid" are skipped, and records shorter
 than min_seq_size dropped.  Each goes through the native parser
 (io/native.py) when it is built, and through the pure-Python parser below
@@ -74,6 +76,49 @@ def parse_fasta(path: str | None = None, data: bytes | None = None) -> Iterator[
         yield FastaRecord(
             fasta_id=fasta_id, seq=seq, header=header.decode("utf-8", "replace")
         )
+
+
+def parse_fastq(
+    path: str | None = None,
+    data: bytes | None = None,
+    quality_min: int = 0,
+) -> Iterator[FastaRecord]:
+    """Stream FASTQ records (the 4-line form).  Bases whose phred+33 quality
+    is below quality_min become 'N' (an invalid code, so a k-mer break)."""
+    if data is None:
+        assert path is not None
+        data = read_file_bytes(path)
+    lines = data.split(b"\n")
+    for i in range(0, len(lines) - 3, 4):
+        head = lines[i].strip()
+        if not head.startswith(b"@"):
+            continue
+        seq = lines[i + 1].strip()
+        if quality_min > 0:
+            qual = lines[i + 3].strip()
+            sa = np.frombuffer(seq, np.uint8).copy()
+            qa = np.frombuffer(qual[: len(sa)], np.uint8)
+            sa[: len(qa)][qa < 33 + quality_min] = ord("N")
+            seq = sa.tobytes()
+        fid = head[1:].split()[0].decode("utf-8", "replace") if len(head) > 1 else ""
+        yield FastaRecord(fasta_id=fid, seq=seq, header=head[1:].decode("utf-8", "replace"))
+
+
+def is_fastq_file(name: str) -> bool:
+    """`.fq` / `.fastq`, compressed or not."""
+    base = name
+    for c in (".gz", ".xz", ".bz2", ".zst", ".zstd"):
+        if base.endswith(c):
+            base = base[: -len(c)]
+            break
+    return base.endswith((".fq", ".fastq"))
+
+
+def parse_reads(path: str, quality_min: int = 0) -> Iterator[FastaRecord]:
+    """Reads from a FASTQ file (by suffix; quality-masked) or a FASTA file."""
+    if is_fastq_file(path):
+        return parse_fastq(path, quality_min=quality_min)
+    return parse_fasta(path)
 
 
 def _encoder(is_aa: bool) -> Callable[[bytes], np.ndarray]:

@@ -387,3 +387,69 @@ def test_seed_sketch_and_sharded_search_on_card_match_cpu(cuda_device):
         assert {sh.stats["search"]["route"] for sh in idx.shards} == {"beam"}
     np.testing.assert_array_equal(res["cuda"][1], res["cpu"][1])
     np.testing.assert_array_equal(res["cuda"][0].view(np.uint32), res["cpu"][0].view(np.uint32))
+
+
+@pytest.mark.parametrize("w", [0, 5, 8])
+def test_bigsi_on_card_matches_cpu(cuda_device, w):
+    """BIGSI bits and raw counts on the card equal the CPU's, bitwise
+    (plain and minimizer mode, odd and even window, down-sampled reads)."""
+    from gsearch_tpu_torch.index.bigsi import BigsiIndex
+
+    rng = np.random.default_rng(40 + w)
+    genomes = [rng.integers(0, 4, n).astype(np.uint8) for n in (30_000, 80_000, (1 << 22) + 500)]
+    genomes[1][500:900] = 255
+    card, cpu = (BigsiIndex(1 << 20, 2, 21, w, device=dev) for dev in (cuda_device, torch.device("cpu")))
+    for i, g in enumerate(genomes):
+        card.insert_genome(f"g{i}", g)
+        cpu.insert_genome(f"g{i}", g)
+    np.testing.assert_array_equal(card._bits, cpu._bits)
+    reads = np.stack([genomes[i % 3][s : s + 256] for i, s in enumerate(rng.integers(0, 29_000, 300))])
+    reads[::7, 100:120] = 255
+    for d in (1, 3):
+        for a, b in zip(card.raw_counts(reads, d), cpu.raw_counts(reads, d)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_hmm_scores_on_card_within_bound_of_cpu(cuda_device, tmp_path):
+    """Viterbi and Forward bits on the card within the bound that holds the
+    CPU path to gsearch_tpu (tests/test_torch_hmmsearch.py)."""
+    from gsearch_tpu_torch.models.hmmprofile import HmmSearcher, parse_hmmer3
+    from torch_synth import AAS, bits_bound, write_profile
+
+    rng = np.random.default_rng(41)
+    for i, length in enumerate((12, 47, 80, 150)):
+        write_profile(tmp_path / "p.hmm", f"P{i}", length, rng)
+    profiles = parse_hmmer3(str(tmp_path / "p.hmm"))
+    seqs = [HmmSearcher.encode("".join(rng.choice(AAS, int(n)))) for n in rng.integers(1, 300, 40)]
+    for algo in ("viterbi", "forward"):
+        for multihit in (True, False):
+            card = HmmSearcher(profiles, device=cuda_device, multihit=multihit).score(seqs, algo)
+            cpu = HmmSearcher(profiles, device=torch.device("cpu"), multihit=multihit).score(seqs, algo)
+            assert np.isfinite(card).all()
+            assert (np.abs(card - cpu) <= bits_bound(cpu)).all(), (algo, np.abs(card - cpu).max())
+
+
+@pytest.mark.parametrize("kind", ["flat", "hnsw"])
+def test_import_on_card_matches_cpu(cuda_device, tmp_path, kind):
+    """A 2,048-row reference dump imported on the card and on the CPU: the
+    same database files, byte for byte."""
+    from gsearch_tpu_torch.core.params import HnswParams, ProcessingParams, SeqSketcherParams
+    from gsearch_tpu_torch.index.refimport import import_reference_db
+    from torch_synth import write_reference_dump
+
+    rng = np.random.default_rng(42)
+    sigs = _cloud(rng, 2048, 256, 32).view(np.float32)
+    params = ProcessingParams(
+        hnsw=HnswParams(capacity=1_500_000, ef=64, max_nb_conn=16, scale_modification=1.0),
+        sketch=SeqSketcherParams(kmer_size=16, sketch_size=256, algo="OPTDENS", data_t="DNA"),
+        block_flag=True)
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    write_reference_dump(str(ref), sigs, params)
+    for out, dev in (("card", cuda_device), ("cpu", torch.device("cpu"))):
+        res = import_reference_db(str(ref), str(tmp_path / out), kind, device=dev)
+        assert res["index_kind"] == kind and res["nb_points"] == 2048
+    names = sorted(p.name for p in (tmp_path / "cpu").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "card").iterdir())
+    for name in names:
+        assert (tmp_path / "card" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes(), name

@@ -14,7 +14,10 @@ import pytest
 from gsearch_tpu_torch.analysis.coreset import build_coreset
 from gsearch_tpu_torch.analysis.embed import Embedder
 from gsearch_tpu_torch.core.params import SeqSketcherParams
+from gsearch_tpu_torch.index.bigsi import BigsiIndex
+from gsearch_tpu_torch.index.refimport import import_reference_db
 from gsearch_tpu_torch.index.sharded import ShardedHnswIndex
+from gsearch_tpu_torch.models.hmmprofile import HmmSearcher, ProfileHMM
 from gsearch_tpu_torch.models.seedchain import SeedChainer
 from gsearch_tpu_torch.index import FlatIndex, HnswIndex, from_jax_database
 from gsearch_tpu_torch.models import make_sketcher
@@ -33,7 +36,9 @@ def test_sources_found():
     assert len(SOURCES) > 30
     rel = {os.path.relpath(p, REPO) for p in SOURCES}
     for mod in ("index/sharded.py", "analysis/kgraph.py", "analysis/coreset.py", "analysis/embed.py",
-                "models/seedchain.py", "cli/hnsw2knn.py", "cli/hnswcore.py", "cli/superani.py"):
+                "models/seedchain.py", "cli/hnsw2knn.py", "cli/hnswcore.py", "cli/superani.py",
+                "index/bigsi.py", "cli/bigsig.py", "index/refimport.py", "models/hmmprofile.py",
+                "cli/hmmsearch.py"):
         assert f"gsearch_tpu_torch/{mod}" in rel, mod
 
 
@@ -78,3 +83,14 @@ def test_entry_points_require_a_device(tmp_path):
         Embedder(None)
     with pytest.raises(TypeError, match="device"):
         build_coreset(np.zeros((4, 8), np.float32), 2)
+    with pytest.raises(TypeError, match="device"):
+        BigsiIndex(1 << 10, 2, 21)
+    with pytest.raises(TypeError, match="device"):
+        BigsiIndex.load(str(tmp_path / "idx"))
+    with pytest.raises(TypeError, match="device"):
+        BigsiIndex.from_jax(object())
+    profile = ProfileHMM("p", "", 1, np.zeros((2, 20), np.float32), np.zeros((2, 7), np.float32))
+    with pytest.raises(TypeError, match="device"):
+        HmmSearcher([profile])
+    with pytest.raises(TypeError, match="device"):
+        import_reference_db(str(tmp_path), str(tmp_path / "out"))
