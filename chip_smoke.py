@@ -125,6 +125,22 @@ CUDA card it exits non-zero before printing any result.
      the top of its profile; Viterbi and Forward of the 8 shortest profiles
      x 64 proteins (their planted ones among them) on the card within
      HMM_BITS_RTOL of the CPU path; DP cells a second an algorithm.
+  genepred. 8 seeded prokaryote-like genomes of 2-5.5 Mb (30 Mbases;
+     tests/torch_synth.synth_genome: planted genes on both strands,
+     codon-biased bodies, real start and stop codons, ~0.87 coding;
+     genome 0 with N runs, genome 1 in four contigs, one under 8,192
+     bases) through CLI `genepred -t standard` on the card: gene recall
+     and precision against the planted truth (a call is right when it
+     shares its 3' end and strand) at or above the floors set from the
+     CPU rehearsal; `-t self` on genome 0, timed; genome 0 again with
+     `--device cpu`: every contig's decoded path equal to the card's and
+     the four files byte-identical; the proteomes of the eight genomes
+     through `tohnsw --aa -k 7` and those of 1%-substituted copies of two
+     of them through `request` (K1 on the card): each query's best hit is
+     its source; the decoder kernel against its plain version on the card,
+     bitwise, at one 64-window dispatch and at the largest genome's
+     windows in one launch, each timed (CUDA events, device-only time)
+     beside its bound and serial chain.
   K2 sites.  Each recorded call is re-run with its own arguments: every
      form bitwise against the plain version, timed under each form, the
      plan's and the plain version (CUDA events; device-only time from
@@ -139,7 +155,8 @@ self pairs in the add); analysis (K1 in the coreset, K2 and the int8
 matmul in the k-NN self-search); superani (none: plain torch); bigsig
 (none: plain torch); import (K2 parts=2 and K1's self pairs in the bulk
 build, K2 and the int8 matmul in the requests); hmmsearch (none: plain
-torch);
+torch); genepred (the decoder kernel in every CLI run, K1 in the AA
+request);
 algos (K1 by every build's request and by bindash, K2 and the int8 matmul
 by the grown databases).  The line before the last
 is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -182,6 +199,12 @@ FULL = {
     "import_total": 65536,
     "hmm_profiles": 120, "hmm_lengths": (100, 1001), "proteome": 512, "prot_lengths": (50, 1501),
     "hmm_check": (8, 64),
+    # planted prokaryote genomes (~30 Mbases); genome 0 has N runs and takes
+    # -t self and the card-vs-CPU check, genome 1 is in four contigs; the AA
+    # chain's queries are 1%-substituted copies of genomes 2 and 5
+    "genepred": {"genomes": 8, "lengths": (2_000_000, 5_500_000), "n_runs": 30,
+                 "query_sources": (2, 5), "query_rate": 0.01, "dispatch": 64,
+                 "recall_floor": 0.9, "precision_floor": 0.85},
 }
 # profile-HMM bits on the card against the CPU path: |diff| <= this x
 # max(|bits|, 1), the bound tests/test_torch_hmmsearch.py holds the CPU path
@@ -1755,6 +1778,228 @@ def phase_hmmsearch(dev, cfg, root) -> dict:
             "residues": int(sum(len(p) for p in prots)), "worst_rel": worst}
 
 
+# f32 peak outside the tensor cores (the decoder's adds and compares), the
+# least latency of one dependent f32 operation (4 cycles at the boost clock)
+# and the dependent operations of one exact decoder step: three adds in the
+# reference's order, a 4-level max over 11 states, the emission add
+F32_OPS_S, F32_OP_S, VITERBI_CHAIN_OPS = 67e12, 4 / 1.98e9, 8
+
+
+def viterbi_bound(nwin: int, w: int) -> dict:
+    """The decoder's work: e [B, W, 11], four bonus vectors, dp0 and the
+    transition table read once, the int8 path written once; per base and
+    window 121 candidates of three adds, 110 compares and 11 emission adds
+    (f32, 67 TFLOP/s).  `chain_ms` is the serial floor: W dependent steps,
+    each at least VITERBI_CHAIN_OPS dependent f32 operations."""
+    nbytes = nwin * w * (11 * 4 + 4 * 4 + 1) + nwin * 11 * 4 + 121 * 4
+    ops = nwin * w * (121 * 3 + 110 + 11)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "chain_ms": w * VITERBI_CHAIN_OPS * F32_OP_S * 1e3}
+
+
+def _synth():
+    """tests/torch_synth.py (no JAX): the planted-genome generator the CPU
+    and card tests share."""
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_synth
+
+    return torch_synth
+
+
+def write_genepred_corpus(root: str, cfg) -> dict:
+    """cfg's planted genomes as FASTA (80-column lines): genome 0 with N
+    runs, genome 1 in several contigs (one under 8,192 bases), and
+    substituted copies of two genomes as the AA chain's queries.  Returns
+    the genome and query files, the truth ({file: [(start, end, strand,
+    contig)]}) and the base count."""
+    synth = _synth()
+    g = cfg["genepred"]
+    rng = np.random.default_rng(SEED + 8)
+    gdir, qdir = os.path.join(root, "gp_genomes"), os.path.join(root, "gp_queries")
+    os.makedirs(gdir)
+    os.makedirs(qdir)
+
+    def write(path, contigs):
+        with open(path, "wb") as f:
+            for name, seq in contigs:
+                body = seq.tobytes()
+                f.write(b">" + name.encode() + b" planted\n")
+                f.write(b"\n".join(body[i : i + 80] for i in range(0, len(body), 80)) + b"\n")
+
+    files, truth, contigs_of, bases = [], {}, {}, 0
+    for i, length in enumerate(np.linspace(*g["lengths"], g["genomes"]).astype(int)):
+        sizes = [int(length)]
+        if i == 1:
+            sizes = [5_000, int(length) // 40, int(length) // 6]
+            sizes.append(int(length) - sum(sizes))
+        contigs, genes = [], []
+        for j, n in enumerate(sizes):
+            seq, planted = synth.synth_genome(rng, n, n_runs=g["n_runs"] if i == 0 else 0)
+            contigs.append((f"g{i}_c{j}", seq))
+            genes += [(*x, f"g{i}_c{j}") for x in planted]
+        path = os.path.join(gdir, f"g{i}.fna")
+        write(path, contigs)
+        files.append(path)
+        truth[path], contigs_of[path] = genes, contigs
+        bases += sum(len(seq) for _, seq in contigs)
+    queries = {}
+    for i in g["query_sources"]:
+        mutated = []
+        for name, seq in contigs_of[files[i]]:
+            seq = seq.copy()
+            hit = (rng.random(len(seq)) < g["query_rate"]) & (seq != ord("N"))
+            seq[hit] = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, int(hit.sum()))]
+            mutated.append((name + "_q", seq))
+        path = os.path.join(qdir, f"q{i}.fna")
+        write(path, mutated)
+        queries[path] = files[i]
+    return {"files": files, "queries": queries, "truth": truth, "bases": bases}
+
+
+def gff_genes(path: str) -> list:
+    """[(start, end, strand, contig)] (0-based, half-open) of a genepred
+    .gff file."""
+    with open(path) as f:
+        return [(int(x[3]) - 1, int(x[4]), x[6], x[0])
+                for x in (line.split("\t") for line in f if not line.startswith("#"))]
+
+
+def phase_genepred(dev, cfg, root) -> dict:
+    """Gene prediction on planted genomes through the CLI on the card, with
+    the launch counts of that main path; the card's files and paths against
+    the CPU's; the decoder kernel against its plain version, timed at one
+    64-window dispatch and at a whole genome."""
+    import gsearch_tpu_torch.models.genepred as gp
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops import viterbi as tv
+
+    from gsearch_tpu_torch.io.fasta import parse_fasta
+
+    synth = _synth()
+    g = cfg["genepred"]
+    t0 = time.perf_counter()
+    corpus = write_genepred_corpus(root, cfg)
+    res = {"write_s": time.perf_counter() - t0, "bases": corpus["bases"], "walls": {}}
+    out_dir, faa_dir, q_faa = (os.path.join(root, d) for d in ("gp_out", "gp_faa", "gp_qfaa"))
+    for d in (out_dir, faa_dir, q_faa):
+        os.makedirs(d)
+
+    def genepred(fasta, prefix, device, *extra):
+        t0 = time.perf_counter()
+        if main(["genepred", "-s", fasta, "-o", prefix, *extra, "--device", device]) != 0:
+            raise AssertionError(f"genepred failed on {fasta}")
+        return time.perf_counter() - t0
+
+    # ---- the main path: genepred over every genome, -t self on genome 0,
+    # the queries' proteomes, tohnsw --aa and request
+    check = corpus["files"][0]
+    cuda_lib.reset_launches()
+    with CallRecorder(gp, "_decode_path") as rec:
+        for path in corpus["files"]:
+            name = os.path.basename(path)[:-4]
+            res["walls"][name] = genepred(path, os.path.join(out_dir, name), dev.type)
+            shutil.copy(os.path.join(out_dir, name + ".faa"), faa_dir)
+            if path == check:
+                paths_card = [out for _, _, out in rec.calls]
+            rec.calls.clear()
+    res["standard_s"] = sum(res["walls"].values())
+    res["self_s"] = genepred(check, os.path.join(out_dir, "self"), dev.type, "-t", "self")
+    for q in corpus["queries"]:
+        name = os.path.basename(q)[:-4]
+        genepred(q, os.path.join(out_dir, name), dev.type)
+        shutil.copy(os.path.join(out_dir, name + ".faa"), q_faa)
+    db, req = os.path.join(root, "gp_db"), os.path.join(root, "gp_req")
+    t0 = time.perf_counter()
+    if main(["tohnsw", "-d", faa_dir, "-k", str(cfg["aa_kmer"]), "-s", str(cfg["sketch"]), "-n", "32",
+             "--ef", "200", "--algo", "optdens", "--block", "--aa", "-o", db, "--device", dev.type]) != 0:
+        raise AssertionError("tohnsw --aa over the predicted proteomes failed")
+    res["aa_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if main(["request", "-b", db, "-n", str(cfg["knbn"]), "-r", q_faa, "-o", req,
+             "--device", dev.type]) != 0:
+        raise AssertionError("request of the queries' proteomes failed")
+    res["aa_request_s"] = time.perf_counter() - t0
+    res["counts"] = dict(cuda_lib.launches)
+    if dev.type == "cuda" and (res["counts"]["viterbi"] == 0 or res["counts"]["hamming_frac"] == 0):
+        raise AssertionError(f"genepred and its AA request did not go through the decoder kernel and "
+                             f"K1: {res['counts']}")
+    source = {os.path.basename(q)[:-4] + ".faa": os.path.basename(s)[:-4] + ".faa"
+              for q, s in corpus["queries"].items()}
+    lo, hi = check_planted("genepred AA chain", os.path.join(req, "gsearch.neighbors.txt"), source)
+
+    # ---- gene calls against the planted truth
+    per_file, n_genes = {}, 0
+    for path in corpus["files"]:
+        name = os.path.basename(path)[:-4]
+        got = gff_genes(os.path.join(out_dir, name + ".gff"))
+        n_genes += len(got)
+        per_file[name] = synth.gene_recall_precision(got, corpus["truth"][path])
+    worst = (min(r for r, _ in per_file.values()), min(q for _, q in per_file.values()))
+    if worst[0] < g["recall_floor"] or worst[1] < g["precision_floor"]:
+        raise AssertionError(f"genepred: recall / precision {per_file} under the floors "
+                             f"{g['recall_floor']} / {g['precision_floor']}")
+    self_rp = synth.gene_recall_precision(gff_genes(os.path.join(out_dir, "self.gff")),
+                                          corpus["truth"][check])
+    res.update(genes=n_genes, recall=worst[0], precision=worst[1], per_file=per_file,
+               self_rp=self_rp, aa_best_d=(lo, hi))
+
+    # ---- the card against the CPU: decoded paths and the four files
+    with CallRecorder(gp, "_decode_path") as rec:
+        res["cpu_s"] = genepred(check, os.path.join(out_dir, "cpu"), "cpu")
+    paths_cpu = [out for _, _, out in rec.calls]
+    if len(paths_cpu) != len(paths_card) or not all(
+            np.array_equal(a, b) for a, b in zip(paths_card, paths_cpu)):
+        raise AssertionError("genepred: the decoded paths on the card differ from the CPU's")
+    name = os.path.basename(check)[:-4]
+    for ext in (".faa", ".ffn", ".gff", ".out"):
+        _same_files(f"genepred {ext}", os.path.join(out_dir, name + ext), os.path.join(out_dir, "cpu" + ext))
+
+    # ---- the kernel against its plain version, timed
+    p = gp.GenePredParams()
+    tb = torch.as_tensor(tv.transition_table(p.p_gene_start, tv.NEG_BIG), device=dev)
+    kernel = {}
+    genome = gp.encode_dna(next(parse_fasta(max(corpus["files"], key=os.path.getsize))).seq)
+    wins = gp._windows(genome)[0]
+    for tag, rows in (("dispatch", wins[: g["dispatch"]]), ("genome", wins)):
+        codes = torch.from_numpy(rows).to(dev)
+        scores = gp._precompute_scores(codes, p.codon_logusage, None, p.start_codon_bonus, p.stop_bonus)
+        dp0 = torch.zeros((len(rows), 11), dtype=torch.float32, device=dev)
+        args = (*scores, dp0, tb)
+        got = tv.viterbi(*args)
+        want = tv.viterbi_plain(*args)
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        if err:
+            raise AssertionError(f"viterbi {tag}: the kernel's path differs from the plain version's")
+        ent = {"windows": len(rows), "err": err}
+        if dev.type == "cuda":
+            ent["ms"] = event_ms(lambda: tv.viterbi(*args), 3)
+            ent["device_ms"] = device_ms(lambda: tv.viterbi(*args), 3, "")  # the launch is this kernel alone
+            ent["plain_ms"] = event_ms(lambda: tv.viterbi_plain(*args), 1)
+            ent.update(viterbi_bound(len(rows), rows.shape[1]))
+        kernel[tag] = ent
+        del scores, args
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gp._decode_path(genome, p, p.codon_logusage, None, device=dev)
+    res["decode_s"] = time.perf_counter() - t0
+    res["decode_bases"] = len(genome)
+    res["kernel"] = kernel
+    print(f"phase genepred {len(corpus['files'])} planted genomes ({res['bases'] / 1e6:.1f} Mbases, "
+          f"{n_genes} genes called): recall >= {worst[0]:.3f}, precision >= {worst[1]:.3f} "
+          f"(floors {g['recall_floor']} / {g['precision_floor']}); -t self on {name}: recall "
+          f"{self_rp[0]:.3f}, precision {self_rp[1]:.3f}; card vs CPU on {name} "
+          f"({os.path.getsize(check) / 1e6:.1f} MB): decoded paths and the four files identical; "
+          f"AA chain: each query's best hit is its source (distances {lo:.4f}..{hi:.4f}); decoder "
+          f"kernel bitwise equal to the plain version at {kernel['dispatch']['windows']} and "
+          f"{kernel['genome']['windows']} windows")
+    return res
+
+
 AA_LETTERS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
 # sketchers whose card and CPU signatures must agree bit for bit; the others
 # take a log (float64 rounded to f32 on both sides) and may differ in
@@ -2284,6 +2529,8 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     hm = timed("phase hmmsearch", phase_hmmsearch, dev, cfg, root)
     hmm_counts = dict(cuda_lib.launches)
     print(f"main-path launches, hmmsearch: {hmm_counts} (the Plan7 recurrences are plain torch)")
+    gpd = timed("phase genepred", phase_genepred, dev, cfg, root)
+    print(f"main-path launches, genepred: {gpd['counts']}")
 
     algos = timed("phase algos", phase_algos, dev, cfg, root, p4, card)
     print(f"main-path launches, algos: {algos['counts']}")
@@ -2291,7 +2538,7 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     k1_sites = algos["k1_sites"] + pa_["k1_sites"]
     launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] + sharded_counts[k]
                 + analysis_counts[k] + superani_counts[k] + bigsig_counts[k] + import_counts[k]
-                + hmm_counts[k] + algos["counts"][k] for k in flat_counts}
+                + hmm_counts[k] + gpd["counts"][k] + algos["counts"][k] for k in flat_counts}
 
     t = timed("phase 6", phase_timings, dev, cfg, p4, p5)
     k2_sites.insert(1, t["k2_site"])
@@ -2378,11 +2625,27 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
               f"({hm['residues']} residues): {sec:.2f} s, {cells / sec:.4g} cells/s ({cells} cells, "
               f"{blocks} blocks)")
     print(f"  timing hmmsearch CLI on {card}: {hm['cli_s']:.1f} s (parse, both algorithms, TSV)")
+    walls = ", ".join(f"{k} {v:.2f}" for k, v in gpd["walls"].items())
+    print(f"  timing genepred on {card}: -t standard over {len(gpd['walls'])} genomes "
+          f"({gpd['bases'] / 1e6:.1f} Mbases) {gpd['standard_s']:.1f} s CLI wall "
+          f"({gpd['bases'] / 1e6 / gpd['standard_s']:.2f} Mbases/s; s a genome: {walls}); -t self on "
+          f"genome 0 {gpd['self_s']:.1f} s; the same genome with --device cpu {gpd['cpu_s']:.1f} s; "
+          f"AA chain tohnsw --aa {gpd['aa_build_s']:.2f} s, request {gpd['aa_request_s']:.2f} s")
+    ent = gpd["kernel"]["genome"]
+    print(f"  timing genepred decode on {card}: {gpd['decode_bases'] / 1e6:.2f} Mbases "
+          f"({ent['windows']} windows) in {gpd['decode_s'] * 1e3:.1f} ms "
+          f"({gpd['decode_bases'] / 1e6 / gpd['decode_s']:.1f} Mbases/s; windows, upload, "
+          f"precompute, kernel, download)")
+    if dev.type == "cuda":
+        for tag, ent in gpd["kernel"].items():
+            print(f"  viterbi {tag} ({ent['windows']} windows x 8192): kernel {ent['ms']:.3f} ms "
+                  f"(device only {ent['device_ms']} ms), plain {ent['plain_ms']:.1f} ms, bound "
+                  f"{ent['bound_ms']:.4f} ms ({ent['bound_by']}), serial chain {ent['chain_ms']:.4f} ms")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
     src = "gsearch_tpu_torch/csrc/hamming.cu"
 
-    def entry(name, replaces, err, ent, library_ms=None, **extra):
-        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+    def entry(name, replaces, err, ent, library_ms=None, source=src, **extra):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches[name], "max_abs_err": err, "ms": ent.get("ms"),
                 "plain_ms": ent.get("plain_ms"), "bound_ms": ent.get("bound_ms"),
                 "bound_by": ent.get("bound_by"), "library_ms": library_ms, **extra}
@@ -2407,6 +2670,13 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
                              ent["err"], ent, shape=[*cfg["k2p"], ent["lanes"]], form=ent.get("form"),
                              ms_query=ent.get("ms_query"), ms_row=ent.get("ms_row"),
                              main_path=[e for e in k2_sites if e["parts"] == parts]))
+    vit = gpd["kernel"]
+    kernels.append(entry("viterbi", "gsearch_tpu/models/genepred.py:790", vit["genome"]["err"],
+                         vit["genome"], source="gsearch_tpu_torch/csrc/viterbi.cu",
+                         shape=[vit["genome"]["windows"], 8192, 11],
+                         device_ms=vit["genome"].get("device_ms"), chain_ms=vit["genome"].get("chain_ms"),
+                         dispatch={k: vit["dispatch"].get(k) for k in (
+                             "windows", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "chain_ms")}))
     return {"kernels": kernels}
 
 

@@ -3,7 +3,7 @@
 The subcommands and flags of gsearch_tpu's CLI for the ported slice:
 tohnsw (all six sketching algorithms, DNA and `--aa`) / add / request /
 ann / import / reformat, and the tools bindash / hypermash / superaai /
-superani / hnsw2knn / hnswcore / bigsig / hmmsearch, forwarded to their
+superani / hnsw2knn / hnswcore / bigsig / hmmsearch / genepred, forwarded to their
 own parsers; plus `--device`
 (default cuda; asking for cuda without a card raises, the CPU is asked
 for with --device cpu).  As in the
@@ -112,6 +112,7 @@ TOOLS = {
     "hnswcore": "gsearch_tpu_torch.cli.hnswcore",
     "bigsig": "gsearch_tpu_torch.cli.bigsig",
     "hmmsearch": "gsearch_tpu_torch.cli.hmmsearch",
+    "genepred": "gsearch_tpu_torch.cli.genepred",
 }
 
 

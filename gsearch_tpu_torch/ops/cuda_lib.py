@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels (gsearch_tpu_torch/csrc).
 
-The sources are compiled at first use with
-`nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC` into `build/gsearch_tpu_torch/` beside the package (a
-directory .gitignore lists), named by a digest of the sources and flags so
-an edited source is rebuilt, and loaded with ctypes.  Nothing is built or
-loaded at import: the CPU tests import every module.
+The sources are compiled at first use, one `nvcc -gencode
+arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c` a source,
+all started together, and linked with `-shared` into one library under
+`build/gsearch_tpu_torch/` beside the package (a directory .gitignore
+lists), named by a digest of the sources and flags so an edited source is
+rebuilt, and loaded with ctypes.  Nothing is built or loaded at import:
+the CPU tests import every module.
 
 `launches` counts kernel launches by wrapper name; each wrapper adds one
 where it launches its kernel and nowhere else.
@@ -28,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 launches = {"hamming_frac": 0, "hamming_frac_self": 0, "gather_hamming": 0, "gather_hamming_p2": 0,
-            "gather_hamming_p4": 0, "gather_hamming_p8": 0, "int_mm": 0}
+            "gather_hamming_p4": 0, "gather_hamming_p8": 0, "int_mm": 0, "viterbi": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -62,14 +63,36 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    tag = f"{os.getpid()}.tmp"
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs, procs = [], []
+    for src in sources:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [_nvcc(), *compile_flags, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    try:
+        for cmd, proc in procs:
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        tmp = f"{out}.{tag}"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for cmd, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return out
 
 
@@ -81,6 +104,8 @@ def bind(path: str) -> ctypes.CDLL:
     lib.gs_hamming_frac.restype = i
     lib.gs_gather_hamming.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, vp, vp, i, vp]
     lib.gs_gather_hamming.restype = i
+    lib.gs_viterbi.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, vp]
+    lib.gs_viterbi.restype = i
     lib.gs_error_string.argtypes = [i]
     lib.gs_error_string.restype = ctypes.c_char_p
     return lib

@@ -453,3 +453,89 @@ def test_import_on_card_matches_cpu(cuda_device, tmp_path, kind):
     assert names == sorted(p.name for p in (tmp_path / "card").iterdir())
     for name in names:
         assert (tmp_path / "card" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes(), name
+
+
+def _viterbi_inputs(b, w, case, seed, device):
+    """Seeded decoder inputs on `device`: emissions and bonuses of planted
+    genomes (or random ones), 255-padded windows whose states all tie, and
+    dp0 forced into NC on row 0; the transition table with or without the
+    indel states."""
+    from gsearch_tpu_torch.io.codec import encode_dna
+    from gsearch_tpu_torch.models.genepred import _precompute_scores, default_codon_logusage
+    from gsearch_tpu_torch.ops.viterbi import transition_table
+    from torch_synth import synth_genome
+
+    rng = np.random.default_rng(seed)
+    if case == "random":
+        e = torch.from_numpy(rng.normal(-1.5, 2.0, (b, w, 11)).astype(np.float32))
+        bon = [torch.from_numpy(rng.normal(0, 4, (b, w)).astype(np.float32)) for _ in range(4)]
+    else:
+        seq, _ = synth_genome(rng, max(b * w // 4, 4 * w) + w, n_runs=max(1, b // 8))
+        starts = rng.integers(0, len(seq) - w, b)
+        codes = encode_dna(np.stack([seq[s : s + w] for s in starts]))
+        codes[:, -100:] = 255
+        if case == "all_padding":
+            codes[:] = 255
+        e, *bon = _precompute_scores(torch.from_numpy(codes), default_codon_logusage(), None,
+                                     3.0, 6.0 if case == "indels" else 9.0)
+    dp0 = torch.zeros((b, 11))
+    dp0[0] = -1e9
+    dp0[0, 0] = 0.0
+    tb = torch.from_numpy(transition_table(1 / 400, np.log(0.01) if case == "indels" else -1e9))
+    return [x.contiguous().to(device) for x in (e, *bon, dp0, tb)]
+
+
+@pytest.mark.parametrize("b,w,case", [(1, 4096, "planted"), (64, 8192, "planted"),
+                                      (1000, 8192, "planted"), (16, 4096, "random"),
+                                      (8, 8192, "all_padding"), (32, 8192, "indels")])
+def test_viterbi_kernel_matches_plain(cuda_device, b, w, case):
+    """The decoder kernel's state paths bitwise equal to the plain
+    version's, the CPU one (held to gsearch_tpu by test_torch_genepred.py)
+    and, where small, the plain loop on the card."""
+    from gsearch_tpu_torch.ops import viterbi as tv
+
+    args = _viterbi_inputs(b, w, case, 50 + b, cuda_device)
+    before = cuda_lib.launches["viterbi"]
+    got = tv.viterbi(*args)
+    assert cuda_lib.launches["viterbi"] == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == (b, w)
+    want = tv.viterbi_plain(*(x.cpu() for x in args))
+    assert torch.equal(got.cpu(), want)
+    if b <= 16:
+        assert torch.equal(got, tv.viterbi_plain(*args))
+
+
+def test_viterbi_wrapper_rejects_bad_inputs(cuda_device):
+    from gsearch_tpu_torch.ops import viterbi as tv
+
+    e, *bon, dp0, tb = _viterbi_inputs(4, 256, "random", 3, cuda_device)
+    with pytest.raises(ValueError):
+        tv.viterbi(e.transpose(0, 1).contiguous().transpose(0, 1), *bon, dp0, tb)
+    with pytest.raises(TypeError):
+        tv.viterbi(e.double(), *bon, dp0, tb)
+    with pytest.raises(ValueError):
+        tv.viterbi(e, *bon, dp0, tb.cpu())
+
+
+def test_genepred_on_card_matches_cpu(cuda_device, tmp_path):
+    """The genepred CLI with self-training (context tables, a 2-round
+    decode) and with the standard prior writes the same four files on the
+    card as on the CPU: the emission precompute gives the same bits and
+    the kernel the same paths."""
+    from gsearch_tpu_torch.cli.genepred import main
+    from torch_synth import synth_genome
+
+    rng = np.random.default_rng(61)
+    fa = tmp_path / "g.fna"
+    with open(fa, "wb") as f:
+        for i, length in enumerate((120_000, 9_000, 3_000)):
+            seq, _ = synth_genome(rng, length, n_runs=1)
+            f.write(b">c%d\n" % i + seq.tobytes() + b"\n")
+    for train in ("standard", "self"):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            assert main(["-s", str(fa), "-o", str(tmp_path / dev), "-t", train, "--device", dev]) == 0
+            outs[dev] = [(tmp_path / (dev + ext)).read_bytes() for ext in (".faa", ".ffn", ".gff", ".out")]
+        assert outs["cuda"] == outs["cpu"], train
+        assert outs["cuda"][0].count(b">") > 50

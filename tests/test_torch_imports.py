@@ -17,6 +17,7 @@ from gsearch_tpu_torch.core.params import SeqSketcherParams
 from gsearch_tpu_torch.index.bigsi import BigsiIndex
 from gsearch_tpu_torch.index.refimport import import_reference_db
 from gsearch_tpu_torch.index.sharded import ShardedHnswIndex
+from gsearch_tpu_torch.models.genepred import predict_genes, self_trained_params
 from gsearch_tpu_torch.models.hmmprofile import HmmSearcher, ProfileHMM
 from gsearch_tpu_torch.models.seedchain import SeedChainer
 from gsearch_tpu_torch.index import FlatIndex, HnswIndex, from_jax_database
@@ -38,7 +39,7 @@ def test_sources_found():
     for mod in ("index/sharded.py", "analysis/kgraph.py", "analysis/coreset.py", "analysis/embed.py",
                 "models/seedchain.py", "cli/hnsw2knn.py", "cli/hnswcore.py", "cli/superani.py",
                 "index/bigsi.py", "cli/bigsig.py", "index/refimport.py", "models/hmmprofile.py",
-                "cli/hmmsearch.py"):
+                "cli/hmmsearch.py", "models/genepred.py", "cli/genepred.py", "ops/viterbi.py"):
         assert f"gsearch_tpu_torch/{mod}" in rel, mod
 
 
@@ -94,3 +95,7 @@ def test_entry_points_require_a_device(tmp_path):
         HmmSearcher([profile])
     with pytest.raises(TypeError, match="device"):
         import_reference_db(str(tmp_path), str(tmp_path / "out"))
+    with pytest.raises(TypeError, match="device"):
+        predict_genes(b"ACGT" * 40)
+    with pytest.raises(TypeError, match="device"):
+        self_trained_params(b"ACGT" * 40)

@@ -1,7 +1,9 @@
 """Seeded inputs shared by the port's tests, importing no JAX (so
-tests/test_torch_cuda.py can use them on the card's machine): HMMER3
-profiles, reference-format database dumps, and the bound that holds the
-port's profile-HMM bit scores (measured in tests/test_torch_hmmsearch.py)."""
+tests/test_torch_cuda.py and chip_smoke.py can use them on the card's
+machine): HMMER3 profiles, reference-format database dumps, the bound that
+holds the port's profile-HMM bit scores (measured in
+tests/test_torch_hmmsearch.py), planted prokaryote genomes and
+FragGeneScan train directories for gene prediction."""
 
 import json
 import math
@@ -85,3 +87,114 @@ def write_reference_dump(d, sigs, params, seqdict_paths=None):
             path = seqdict_paths[i] if seqdict_paths else f"/data/g{i}.fna"
             f.write(json.dumps({"id": {"path": path, "fasta_id": f"g{i}"}, "len": 1000 + i}))
     params.dump_json(d)
+
+
+# ---- gene prediction: planted genomes and FragGeneScan train directories ----
+
+_DNA = np.frombuffer(b"ACGT", dtype=np.uint8)
+#: codon id (A=0 C=1 G=2 T=3, b0 * 16 + b1 * 4 + b2) -> its three bases
+_CODON_BYTES = np.array([[_DNA[c >> 4], _DNA[(c >> 2) & 3], _DNA[c & 3]] for c in range(64)],
+                        dtype=np.uint8)
+_COMPLEMENT = np.zeros(256, np.uint8)
+_COMPLEMENT[list(b"ACGTN")] = list(b"TGCAN")
+_STARTS = {"ATG": 0.90, "GTG": 0.08, "TTG": 0.02}    # E. coli start usage
+_STOPS = {"TAA": 0.61, "TAG": 0.09, "TGA": 0.30}     # E. coli K-12 stop usage
+
+
+def _cid(codon: str) -> int:
+    return sum("ACGT".index(b) << s for b, s in zip(codon, (4, 2, 0)))
+
+
+def gene_codon_usage() -> np.ndarray:
+    """P(codon) of gene bodies: the E. coli K-12 table the port ships as
+    its built-in prior, with in-frame stops removed."""
+    from gsearch_tpu_torch.models.genepred import default_codon_logusage
+
+    p = np.exp(default_codon_logusage().astype(np.float64))
+    p[[_cid(s) for s in _STOPS]] = 0.0
+    return p / p.sum()
+
+
+def revcomp(seq: np.ndarray) -> np.ndarray:
+    return _COMPLEMENT[seq[::-1]]
+
+
+def synth_genome(rng, length: int, usage=None, spacer=(30, 250), n_runs: int = 0):
+    """A prokaryote-like genome of about `length` bases: genes on both
+    strands (ATG / GTG / TTG start, codon-biased body of log-normal length
+    around 300 codons, TAA / TAG / TGA stop) between uniform random spacers
+    of `spacer` bases, ~0.87 of the bases coding; `n_runs` stretches of
+    50-500 bases then become N (the genes they touch drop from the truth).
+    Returns (uint8 ASCII bases, [(start, end, strand)]) with 0-based
+    half-open gene spans."""
+    usage = gene_codon_usage() if usage is None else usage
+    starts, stops = list(_STARTS), list(_STOPS)
+    parts, genes, pos = [], [], 0
+    while pos < length:
+        ig = int(rng.integers(*spacer))
+        parts.append(_DNA[rng.integers(0, 4, ig)])
+        pos += ig
+        n_codons = int(np.clip(rng.lognormal(np.log(300), 0.55), 40, 1500))
+        body = rng.choice(64, size=n_codons - 2, p=usage)
+        head = starts[rng.choice(3, p=list(_STARTS.values()))]
+        tail = stops[rng.choice(3, p=list(_STOPS.values()))]
+        gene = np.concatenate([np.frombuffer(head.encode(), np.uint8),
+                               _CODON_BYTES[body].reshape(-1),
+                               np.frombuffer(tail.encode(), np.uint8)])
+        strand = "+" if rng.random() < 0.5 else "-"
+        parts.append(gene if strand == "+" else revcomp(gene))
+        genes.append((pos, pos + len(gene), strand))
+        pos += len(gene)
+    seq = np.concatenate(parts)
+    for _ in range(n_runs):
+        a = int(rng.integers(0, len(seq) - 500))
+        b = a + int(rng.integers(50, 500))
+        seq[a:b] = ord("N")
+        genes = [g for g in genes if g[1] <= a or g[0] >= b]
+    return seq, genes
+
+
+def gene_recall_precision(pred, truth) -> tuple:
+    """(recall, precision) of predicted genes against planted ones, each a
+    (start, end, strand[, contig]) tuple: a call is right when it shares
+    its 3' end, strand (and contig) with a planted gene (the standard
+    gene-caller criterion; start calls are scored apart)."""
+    def three_prime(g):
+        start, end, strand, *contig = g
+        return (end if strand == "+" else start, strand, *contig)
+
+    want = {three_prime(g) for g in truth}
+    got = {three_prime(g) for g in pred}
+    tp = len(want & got)
+    return tp / max(len(want), 1), tp / max(len(got), 1)
+
+
+def write_fgs_train_dir(d, rng, cg_bins=(30.0, 50.0, 70.0)):
+    """A FragGeneScan train directory in the original tool's layout (one
+    CG-percent header line a bin, then the table rows): gene / rgene 96 x 4,
+    noncoding 4 x 4, start / stop / start1 / stop1 61 x 64, pwm 4 x 6, and
+    the per-error-model file `complete`."""
+    def dirich(shape):
+        p = rng.gamma(1.0, size=shape) + 1e-3
+        return p / p.sum(axis=1, keepdims=True)
+
+    def write(name, rows, width, gen):
+        with open(os.path.join(d, name), "w") as f:
+            for cg in cg_bins:
+                f.write(f"{cg:g}\n")
+                tab = gen()
+                for r in range(rows):
+                    f.write(" ".join(f"{v:.6f}" for v in tab[r][:width]) + "\n")
+
+    write("gene", 96, 4, lambda: dirich((96, 4)))
+    write("rgene", 96, 4, lambda: dirich((96, 4)))
+    write("noncoding", 4, 4, lambda: dirich((4, 4)))
+    for n in ("start", "stop", "start1", "stop1"):
+        write(n, 61, 64, lambda: dirich((61, 64)))
+    write("pwm", 4, 6, lambda: np.array([[3.0, 40.0, 0.7, 4.0, -5.0, 0.3]] * 4))
+    with open(os.path.join(d, "complete"), "w") as f:
+        f.write("Transition\n")
+        for k, v in (("MM", 0.920), ("MI", 0.002), ("MD", 0.002), ("II", 0.45), ("IM", 0.55),
+                     ("DD", 0.45), ("DM", 0.55), ("GE", 0.99), ("GG", 0.99), ("ER", 0.5),
+                     ("RS", 0.5), ("ES", 0.5), ("SR", 0.5)):
+            f.write(f"{k} {v}\n")
