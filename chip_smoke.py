@@ -72,6 +72,24 @@ CUDA card it exits non-zero before printing any result.
      self-search's first rerank (a K2 site) and the coreset's [256, N]
      assignment, [1, N] draw and [256, 256] medoid block (K1 sites); at
      48 genomes, hnsw2knn and hnswcore files on the card equal the CPU's.
+  mesh. parallel/mesh.py with 4 members on the one card: (a) phase 4's 48
+     genomes sketched data-parallel equal phase 4's signatures bitwise;
+     (b) MeshSearcher over 262,144 x 12,000 clustered rows drawn on the
+     card (1,024 queries, k = 10) bitwise equal to one K1 sweep with a
+     stable top-k; a member's K1 sweep [1,024, 65,536] x 12,000 held
+     bitwise against its plain version (a K1 site); (c) MeshMxuSearcher on
+     the same rows: recall@10 >= 0.95 against (b), nearest distances within
+     3/S, its K2 parts=2 call recorded (a K2 site); (d) MeshGraphSearcher
+     over the sharded phase's database (4 shards, one a member): tie-aware
+     recall@10 no less than the sequential search's minus 0.05, its rerank
+     and first beam hop recorded (K2 sites); phase 4's 8 queries through
+     `request_database` with the mesh find their sources at ANI 99 +- 0.5;
+     (e) two processes on the card, 2 members each, over gloo (started
+     after (b), collected after (f)): their lists over the first 65,536
+     rows equal K1's over those rows; (f) CLI `tohnsw --mesh -1` and
+     `request --mesh -1` of phase 4's corpus write phase 4's neighbours
+     file byte for byte, and `--mesh 2` on a one-card machine raises the
+     count error.
   superani. CLI `superani --model none` of phase 4's 8 queries x 48
      genomes: each best hit among the pairs aligned over half the query
      is its source at ANI 99 +- 0.5 (a chain of a few chance seed matches
@@ -152,7 +170,10 @@ hnsw-build to hnsw-add (K2 parts=2 and K1's self pairs in the bulk build,
 K2 and the int8 matmul in the request, K1 and its self pairs in the add);
 tiers (K2 parts=4 and 8); sharded (K2 in the shards' beam hops, K1's
 self pairs in the add); analysis (K1 in the coreset, K2 and the int8
-matmul in the k-NN self-search); superani (none: plain torch); bigsig
+matmul in the k-NN self-search); mesh (K1 in the members' sweeps and
+entry tiers, K2 parts=2 and the int8 matmul in the compact members, K2
+in the graph members' hops and reranks; the two processes' launches are
+their own); superani (none: plain torch); bigsig
 (none: plain torch); import (K2 parts=2 and K1's self pairs in the bulk
 build, K2 and the int8 matmul in the requests); hmmsearch (none: plain
 torch); genepred (the decoder kernel in every CLI run, K1 in the AA
@@ -197,6 +218,9 @@ FULL = {
     "bigsig": {"bloom": 25_000_000, "reads": 262_144, "read_len": 256, "pairs": 65_536,
                "batch": 4096, "columns": 1024},
     "import_total": 65536,
+    # the mesh: members on the one card, the row-sharded database, its
+    # queries, and the rows the two processes share
+    "mesh_members": 4, "mesh_total": 262144, "mesh_queries": 1024, "mesh_process_rows": 65536,
     "hmm_profiles": 120, "hmm_lengths": (100, 1001), "proteome": 512, "prot_lengths": (50, 1501),
     "hmm_check": (8, 64),
     # planted prokaryote genomes (~30 Mbases); genome 0 has N runs and takes
@@ -789,22 +813,26 @@ def _tie_aware(got_d: np.ndarray, true_d: np.ndarray) -> float:
 
 
 class K2Recorder:
-    """While active, K2's calls made by the graph index and the searcher
-    (the flat index goes through the searcher) are recorded: the
-    arguments of the first `keep`, and the count of all of them."""
+    """While active, K2's calls made by the graph index, the searcher (the
+    flat index goes through the searcher) and the mesh searchers are
+    recorded: the arguments of the first `keep` that `where(i, db, q, ids,
+    kw)` accepts (i the call's number; default: every call), and the count
+    of all of them."""
 
-    def __init__(self, keep: int):
-        self.keep, self.calls, self.count = keep, [], 0
+    def __init__(self, keep: int, where=None):
+        self.keep, self.where, self.calls, self.count = keep, where, [], 0
 
     def __enter__(self):
         import gsearch_tpu_torch.index.hnsw as hnsw_mod
         import gsearch_tpu_torch.ops.mxu as mxu_mod
+        import gsearch_tpu_torch.parallel.mesh as mesh_mod
         from gsearch_tpu_torch.ops.distance import gather_hamming
 
-        self.mods, self.real = (hnsw_mod, mxu_mod), gather_hamming
+        self.mods, self.real = (hnsw_mod, mxu_mod, mesh_mod), gather_hamming
 
         def recorder(db, q, ids, **kw):
-            if len(self.calls) < self.keep:
+            if len(self.calls) < self.keep and (self.where is None
+                                                or self.where(self.count, db, q, ids, kw)):
                 self.calls.append((db, q, ids, kw))
             self.count += 1
             return gather_hamming(db, q, ids, **kw)
@@ -1278,6 +1306,370 @@ def phase_analysis(dev, cfg, root, p4, ps) -> dict:
           f"intra/inter species {ratio['species']:.3f}, families {ratio['family']:.3f}; hnswcore "
           f"--coreset {c} --cluster {cfg['cluster']} (hamming, l2): both CSVs; at 48 genomes the card's "
           f"hnsw2knn and hnswcore files equal the CPU's")
+    return res
+
+
+def mesh_rows(dev, n: int, s: int, gen) -> torch.Tensor:
+    """[n, S] f32 signatures drawn on the card: clusters of 64 consecutive
+    rows, each row a copy of its cluster's root with a per-row fraction in
+    [0.02, 0.3) of its slots redrawn, so a query's nearest rows lie at a
+    spread of distances inside its cluster and the rest near 1.0."""
+    out = torch.empty((n, s), dtype=torch.float32, device=dev)
+    per, block = 64, 16384
+    for start in range(0, n, block):
+        m = min(block, n - start)
+        roots = torch.rand((-(-m // per), s), generator=gen, device=dev).repeat_interleave(per, 0)[:m]
+        frac = 0.02 + 0.28 * torch.rand((m, 1), generator=gen, device=dev)
+        redraw = torch.rand((m, s), generator=gen, device=dev) < frac
+        out[start : start + m] = torch.where(redraw, torch.rand((m, s), generator=gen, device=dev), roots)
+    return out
+
+
+def once_ms(fn) -> tuple:
+    """(fn's result, its device time in ms from CUDA events) for one call."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def k1_member_site(dev, site: str, q: torch.Tensor, db: torch.Tensor, launches: int) -> dict:
+    """A mesh member's K1 sweep re-run with its own rows: its plain version
+    run once (held bitwise, and timed), the kernel timed by CUDA events,
+    torch.cdist(p=0) timed once, beside the bound.  No device-only time:
+    the profiler caught one of two launches this long.  These launches
+    are not main-path launches: the counts are restored."""
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops.distance import hamming_frac, hamming_frac_plain, k1_plan
+
+    saved = dict(cuda_lib.launches)
+    if dev.type == "cuda":
+        want, plain_ms = once_ms(lambda: hamming_frac_plain(q, db))
+    else:
+        want, plain_ms = hamming_frac_plain(q, db), None
+    got = hamming_frac(q, db)
+    if not same_bits(got, want):
+        raise AssertionError(f"K1 {site}: differs from its plain version, max abs err {max_abs_err(got, want)}")
+    del got, want
+    (nq, s), n = q.shape, db.shape[0]
+    if dev.type != "cuda":
+        cuda_lib.launches.update(saved)
+        return {"site": site, "launches": launches, "shape": [nq, n, s], "err": 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qf, dbf = q.float(), db.float()
+    torch.cdist(qf[:8], dbf[:64], p=0)
+    library_ms = once_ms(lambda: torch.cdist(qf, dbf, p=0))[1]
+    del qf, dbf
+    ent = {"site": site, "launches": launches, "shape": [nq, n, s], "dtype": "float32", "err": 0.0,
+           "plan": k1_plan(1, nq, n, s, sms)._asdict(), "ms": event_ms(lambda: hamming_frac(q, db), 3),
+           "device_ms": None, "plain_ms": plain_ms, "library_ms": library_ms, **k1_bound(1, nq, n, s, sms)}
+    cuda_lib.launches.update(saved)
+    return ent
+
+
+def mesh_worker(argv) -> int:
+    """One of two processes of a mesh run (the mesh phase's, and the mesh
+    tests'): joins the other over gloo, holds `members` members on
+    `device` (its own rows of the database file, read through a memory
+    map), searches the queries and saves the merged lists, its global
+    member indices, the mesh's size and the sum of every member's index
+    gathered over both processes.  argv: rank, port, database .npy,
+    queries .npy, k, output .npz, device, members."""
+    import torch.distributed as dist
+
+    from gsearch_tpu_torch.parallel.mesh import MeshSearcher, initialize_multihost, make_device_mesh
+
+    rank, port, db, queries, k, out, device, members = argv
+    initialize_multihost(f"localhost:{port}", 2, int(rank))
+    try:
+        dev = torch.device(device)
+        mesh = make_device_mesh(device=dev, devices=[dev] * int(members))
+        total = float(sum(mesh.gather([torch.tensor([float(g)]) for g, _ in mesh.members()])))
+        d, ids = MeshSearcher(np.load(db, mmap_mode="r"), mesh).search(np.load(queries), int(k))
+        np.savez(out, d=d, ids=ids, members=np.array([g for g, _ in mesh.members()]), size=mesh.size,
+                 total=total)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def start_mesh_processes(root: str, k: int, dev: torch.device, members: int) -> list:
+    """Start `mesh_worker` twice (ranks 0 and 1) on root/mesh_db.npy and
+    root/mesh_q.npy, each writing root/mesh_rank{r}.npz and .log."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.mesh_worker(sys.argv[1:]))"
+    procs = []
+    for rank in range(2):
+        with open(os.path.join(root, f"mesh_rank{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(rank), str(port), os.path.join(root, "mesh_db.npy"),
+                 os.path.join(root, "mesh_q.npy"), str(k), os.path.join(root, f"mesh_rank{rank}.npz"),
+                 str(dev), str(members)],
+                cwd=here, stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def finish_mesh_processes(procs: list, root: str, timeout: float) -> list:
+    """Wait for the two processes (killing both past `timeout` s); raise
+    with both logs if either failed; else each rank's saved arrays."""
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(p.returncode != 0 for p in procs):
+        logs = []
+        for rank, p in enumerate(procs):
+            with open(os.path.join(root, f"mesh_rank{rank}.log")) as f:
+                logs.append(f"--- process {rank} (rc {p.returncode}):\n{f.read()[-3000:]}")
+        raise AssertionError("a mesh process failed:\n" + "\n".join(logs))
+    out = []
+    for rank in range(2):
+        with np.load(os.path.join(root, f"mesh_rank{rank}.npz")) as f:
+            out.append({key: f[key] for key in f.files})
+    return out
+
+
+def phase_mesh(dev, cfg, root, p4, ps) -> dict:
+    """The mesh on the one card, cfg["mesh_members"] members on cuda:0:
+    (a) phase 4's genomes sketched data-parallel equal phase 4's signatures;
+    (b) MeshSearcher over cfg["mesh_total"] x S equals one K1 sweep with a
+    stable top-k, bitwise; (c) MeshMxuSearcher on the same rows; (d)
+    MeshGraphSearcher over the sharded phase's database, and a request
+    through the pipeline with the mesh; (e) two processes of 2 members
+    each, merging over gloo, equal the sweep over their rows; (f) the CLI
+    with --mesh -1 writes phase 4's neighbours file, --mesh 2 on one card
+    raises the count error."""
+    import gsearch_tpu_torch.parallel.mesh as mesh_mod
+    from gsearch_tpu_torch.cli.main import main
+    from gsearch_tpu_torch.core import ComputingParams
+    from gsearch_tpu_torch.index.serialize import load_index
+    from gsearch_tpu_torch.ops import cuda_lib
+    from gsearch_tpu_torch.ops.distance import bucketed_knn
+    from gsearch_tpu_torch.parallel.mesh import (MeshGraphSearcher, MeshMxuSearcher, MeshSearcher,
+                                                 make_device_mesh)
+    from gsearch_tpu_torch.pipeline import database_sketcher, read_genomes, request_database
+
+    members, k, s = cfg["mesh_members"], cfg["knbn"], cfg["sketch"]
+    mesh = make_device_mesh(device=dev, devices=[dev] * members)
+    res = {"members": members}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def oracle(fn):  # not the main path: the counts are restored
+        saved = dict(cuda_lib.launches)
+        out = fn()
+        cuda_lib.launches.update(saved)
+        return out
+
+    # (a) data-parallel sketching
+    genomes = read_genomes(p4["db_dir"])
+    sketcher = database_sketcher(p4["db"], device=dev)
+    sketcher.set_mesh(mesh)
+    sync()
+    t0 = time.perf_counter()
+    sigs = sketcher.sketch_many(genomes)
+    sync()
+    res["sketch_s"] = time.perf_counter() - t0
+    res["mbases"] = sum(len(g) for g in genomes) / 1e6
+    if not np.array_equal(sigs.view(np.uint32), load_index(p4["db"], dev).get_sigs().view(np.uint32)):
+        raise AssertionError(f"mesh sketch of phase 4's {len(genomes)} genomes differs from phase 4's signatures")
+    del genomes, sketcher
+
+    # (b) the exact row-sharded search
+    n, nq = cfg["mesh_total"], cfg["mesh_queries"]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    t0 = time.perf_counter()
+    db = mesh_rows(dev, n, s, gen)
+    src = torch.randint(0, n, (nq,), generator=gen, device=dev)
+    q = torch.where(torch.rand((nq, s), generator=gen, device=dev) < 0.05,
+                    torch.rand((nq, s), generator=gen, device=dev), db[src])
+    qn = q.cpu().numpy()
+    sync()
+    res["gen_s"] = time.perf_counter() - t0
+    exact = MeshSearcher(db, mesh)  # each member's shard is a view of db
+    times = []
+    for rep in range(3):
+        with CallRecorder(mesh_mod, "hamming_frac", keep=lambda args, out: args) as rec:
+            t0 = time.perf_counter()
+            d, ids = exact.search(qn, k)
+            times.append(time.perf_counter() - t0)
+        if rep == 0:
+            k1_calls = [args for _, _, args in rec.calls]
+    res["exact_cold_s"], res["exact_s"] = times[0], statistics.median(times[1:])
+    true_d, true_i = oracle(lambda: bucketed_knn(q.view(torch.int32), db.view(torch.int32), k))
+    if not (np.array_equal(ids, true_i) and np.array_equal(d.view(np.uint32), true_d.view(np.uint32))):
+        raise AssertionError("MeshSearcher differs from one K1 sweep with a stable top-k")
+    if len(k1_calls) != members:
+        raise AssertionError(f"MeshSearcher made {len(k1_calls)} K1 calls for {members} members")
+    res["k1_site"] = k1_member_site(dev, f"mesh member's sweep (member 0 of {members})", *k1_calls[0],
+                                    launches=members)
+    del k1_calls, rec, exact
+
+    # (e) starts here so the two processes' start-up overlaps (c), (d), (f)
+    nr = cfg["mesh_process_rows"]
+    np.save(os.path.join(root, "mesh_db.npy"), db[:nr].cpu().numpy())
+    np.save(os.path.join(root, "mesh_q.npy"), qn)
+    e_d, e_i = oracle(lambda: bucketed_knn(q.view(torch.int32), db[:nr].view(torch.int32), k))
+    procs = start_mesh_processes(root, k, dev, members // 2)
+    try:
+        # (c) the compact row-sharded search
+        sync()
+        t0 = time.perf_counter()
+        compact = MeshMxuSearcher(db, mesh)
+        sync()
+        res["mxu_build_s"] = time.perf_counter() - t0
+        times = []
+        for rep in range(3):
+            with K2Recorder(keep=1) as rec:
+                t0 = time.perf_counter()
+                dm, im = compact.search(qn, k)
+                times.append(time.perf_counter() - t0)
+            if rep == 0:
+                if rec.count != members or rec.calls[0][3].get("parts") != 2:
+                    raise AssertionError(f"MeshMxuSearcher: {rec.count} K2 calls, expected {members} parts=2")
+                call = rec.calls[0]
+        res["mxu_cold_s"], res["mxu_s"] = times[0], statistics.median(times[1:])
+        res["mxu_recall"] = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(im, ids)]))
+        res["mxu_nearest_err"] = float(np.abs(dm[:, 0] - d[:, 0]).max())
+        if res["mxu_recall"] < 0.95 or res["mxu_nearest_err"] > 3.0 / s:
+            raise AssertionError(f"MeshMxuSearcher: recall@10 {res['mxu_recall']}, nearest distance off by "
+                                 f"{res['mxu_nearest_err']} (bound {3.0 / s})")
+        res["k2_sites"] = [k2_site(dev, f"mesh compact rerank (member 0 of {members}, {compact.nl} rows)",
+                                   call, members)]
+        del call, rec, compact, db, q
+        torch.cuda.empty_cache()
+
+        # (d) the graph over the sharded phase's database
+        index = load_index(ps["db"], dev)
+        n_g, g_sigs = index.nb_points, index.get_sigs()
+        sync()
+        t0 = time.perf_counter()
+        graph = MeshGraphSearcher(index, mesh)
+        sync()
+        res["graph_build_s"] = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(SEED + 5)  # the sharded phase's queries
+        src = torch.randint(ps["n_real"], n_g, (cfg["shard_queries"],), generator=gen, device=dev).cpu().numpy()
+        rows = torch.from_numpy(g_sigs[src]).to(dev)
+        gq = torch.where(torch.rand(rows.shape, generator=gen, device=dev) < 0.05,
+                         torch.rand(rows.shape, generator=gen, device=dev), rows)
+        gqn = gq.cpu().numpy()
+        all_rows = torch.from_numpy(g_sigs).to(dev).view(torch.int32)
+        g_true, _ = oracle(lambda: bucketed_knn(gq.view(torch.int32), all_rows, k))
+        del all_rows, rows, g_sigs
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            gd, _ = graph.search(gqn, k)
+            times.append(time.perf_counter() - t0)
+        res["graph_cold_s"], res["graph_s"] = times
+        res["graph_hops"] = sum(graph.stats["hops"])
+        res["graph_recall"] = _tie_aware(gd, g_true)
+        if res["graph_recall"] < ps["recall"] - 0.05:
+            raise AssertionError(f"MeshGraphSearcher recall@10 {res['graph_recall']} < the sequential "
+                                 f"search's {ps['recall']} - 0.05")
+        full = index.sketch_size
+        with K2Recorder(keep=2, where=lambda i, db_, *_: i == 0 or db_.shape[1] == full) as rec:
+            graph.search(gqn, k)
+        if rec.count != sum(graph.stats["hops"]) + members or rec.calls[1][0].shape[1] != full:
+            raise AssertionError(f"MeshGraphSearcher: {rec.count} K2 calls for {graph.stats['hops']} hops")
+        res["k2_sites"] += [
+            k2_site(dev, f"mesh graph rerank (member 0 of {members})", rec.calls[1], members),
+            k2_site(dev, f"mesh member's beam hop (the first of member 0)", rec.calls[0],
+                    sum(graph.stats["hops"]))]
+        del rec, graph, index, gq
+        torch.cuda.empty_cache()
+        out = os.path.join(root, "req_mesh_graph")
+        t0 = time.perf_counter()
+        request_database(ps["db"], p4["q_dir"], k, ComputingParams(mesh_devices=members), out_dir=out,
+                         device=dev, mesh=mesh)
+        res["graph_request_s"] = time.perf_counter() - t0
+        tsv = os.path.join(out, "ani.tsv")
+        if main(["reformat", str(cfg["kmer"]), "1", os.path.join(out, "gsearch.neighbors.txt"), tsv]) != 0:
+            raise AssertionError("reformat of the mesh graph request failed")
+        best = {}
+        with open(tsv) as f:
+            next(f)
+            for line in f:
+                query, _, hit, _, ani = line.rstrip("\n").split("\t")
+                best.setdefault(query, (hit, float(ani)))
+        for query, want in p4["source"].items():
+            hit, ani = best.get(query, (None, float("nan")))
+            if hit != want or not abs(ani - 99.0) < 0.5:
+                raise AssertionError(f"mesh graph request: {query}'s best hit {hit} ANI {ani}, expected "
+                                     f"{want} at 99 +- 0.5")
+        res["ani"] = (min(a for _, a in best.values()), max(a for _, a in best.values()))
+
+        # (f) the CLI with --mesh
+        db_dir, out = os.path.join(root, "db_mesh"), os.path.join(root, "req_mesh")
+        build = ["tohnsw", "-d", p4["db_dir"], "-k", str(cfg["kmer"]), "-s", str(s), "-n", "32", "--ef", "200",
+                 "--algo", "optdens", "--block", "--device", dev.type]
+        t0 = time.perf_counter()
+        if main(["--mesh", "-1", *build, "-o", db_dir]) != 0:
+            raise AssertionError("tohnsw --mesh -1 failed")
+        res["cli_build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if main(["--mesh", "-1", "request", "-b", db_dir, "-n", str(k), "-r", p4["q_dir"], "-o", out,
+                 "--device", dev.type]) != 0:
+            raise AssertionError("request --mesh -1 failed")
+        res["cli_request_s"] = time.perf_counter() - t0
+        _same_files("neighbours file of --mesh -1 and phase 4's", p4["neighbours"],
+                    os.path.join(out, "gsearch.neighbors.txt"))
+        cards = torch.cuda.device_count()
+        if dev.type == "cuda" and cards < 2:
+            try:
+                main(["--mesh", "2", *build, "-o", db_dir + "2"])
+            except ValueError as e:
+                if f"needs 2 CUDA cards, but {cards}" not in str(e):
+                    raise
+                res["count_error"] = str(e)
+            else:
+                raise AssertionError(f"--mesh 2 on a machine with {cards} card did not raise")
+        shutil.rmtree(db_dir)
+
+        # (e) the two processes' lists
+        t0 = time.perf_counter()
+        ranks = finish_mesh_processes(procs, root, timeout=300)
+        res["process_wait_s"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    half = members // 2
+    for rank, got in enumerate(ranks):
+        if (int(got["size"]) != members or list(got["members"]) != list(range(rank * half, (rank + 1) * half))
+                or float(got["total"]) != members * (members - 1) / 2
+                or not np.array_equal(got["ids"], e_i)
+                or not np.array_equal(got["d"].view(np.uint32), e_d.view(np.uint32))):
+            raise AssertionError(f"mesh process {rank}: lists differ from the K1 sweep over the first "
+                                 f"{nr} rows (members {list(got['members'])}, total {got['total']})")
+    for name in ("mesh_db.npy", "mesh_q.npy", "mesh_rank0.npz", "mesh_rank1.npz", "mesh_rank0.log",
+                 "mesh_rank1.log"):
+        os.remove(os.path.join(root, name))
+    print(f"phase mesh, {members} members on {dev}: {res['mbases']:.1f} Mbases sketched data-parallel equal "
+          f"phase 4's signatures; MeshSearcher {nq} queries x {n} x {s} bitwise equal to one K1 sweep; "
+          f"MeshMxuSearcher recall@10 {res['mxu_recall']:.4f}, nearest distance within "
+          f"{res['mxu_nearest_err']:.2e} (bound {3.0 / s:.2e}); MeshGraphSearcher over {n_g} rows in "
+          f"{members} shards recall@10 {res['graph_recall']:.4f} (sequential {ps['recall']:.4f}), phase 4's "
+          f"queries at ANI {res['ani'][0]:.3f}..{res['ani'][1]:.3f}; two processes of 2 members over gloo "
+          f"equal the sweep over {nr} rows; --mesh -1 CLI file byte-identical to phase 4's; "
+          f"--mesh 2: {res.get('count_error', 'not checked (more than one card)')}")
     return res
 
 
@@ -2504,13 +2896,22 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
         raise AssertionError(f"the analysis tools did not go through K1 (coreset), K2 and the int8 "
                              f"matmul (k-NN self-search): {analysis_counts}")
     print(f"main-path launches, analysis: {analysis_counts}")
+    cuda_lib.reset_launches()
+    pm = timed("phase mesh", phase_mesh, dev, cfg, root, p4, ps)
+    mesh_counts = dict(cuda_lib.launches)
+    if dev.type == "cuda" and any(mesh_counts[k] == 0 for k in (
+            "hamming_frac", "gather_hamming", "gather_hamming_p2", "int_mm")):
+        raise AssertionError(f"the mesh searchers did not go through K1 (member sweeps, entry tiers), K2 "
+                             f"(graph hops and rerank), K2 parts=2 and the int8 matmul (compact members): "
+                             f"{mesh_counts}")
+    print(f"main-path launches, mesh: {mesh_counts}")
     shutil.rmtree(ps.pop("db"))
     torch.cuda.empty_cache()
     cuda_lib.reset_launches()
     sa = timed("phase superani", phase_superani, dev, cfg, root, p4)
     superani_counts = dict(cuda_lib.launches)
     print(f"main-path launches, superani: {superani_counts} (seed hashing is plain torch)")
-    k2_sites += [ps["k2_site"], pa_["k2_site"]]
+    k2_sites += [ps["k2_site"], pa_["k2_site"], *pm["k2_sites"]]
 
     cuda_lib.reset_launches()
     bg = timed("phase bigsig", phase_bigsig, dev, cfg, root, p4)
@@ -2535,9 +2936,9 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     algos = timed("phase algos", phase_algos, dev, cfg, root, p4, card)
     print(f"main-path launches, algos: {algos['counts']}")
     k2_sites += algos["k2_sites"]
-    k1_sites = algos["k1_sites"] + pa_["k1_sites"]
+    k1_sites = algos["k1_sites"] + pa_["k1_sites"] + [pm["k1_site"]]
     launches = {k: flat_counts[k] + graph_counts[k] + tier_counts[k] + sharded_counts[k]
-                + analysis_counts[k] + superani_counts[k] + bigsig_counts[k] + import_counts[k]
+                + analysis_counts[k] + mesh_counts[k] + superani_counts[k] + bigsig_counts[k] + import_counts[k]
                 + hmm_counts[k] + gpd["counts"][k] + algos["counts"][k] for k in flat_counts}
 
     t = timed("phase 6", phase_timings, dev, cfg, p4, p5)
@@ -2601,6 +3002,16 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
     print(f"  timing coreset on {card}: hnswcore --coreset {cfg['coreset']} --cluster {cfg['cluster']} "
           f"over {cfg['shard_total']}: hamming {pa_['core_hamming_s']:.1f} s ({pa_['k1_calls']} K1 calls), "
           f"l2 {pa_['core_l2_s']:.1f} s (CLI wall)")
+    print(f"  timing mesh on {card}, {pm['members']} members on the one card (they run one after another): "
+          f"sketch {pm['mbases'] / pm['sketch_s']:.1f} Mbases/s ({pm['mbases']:.1f} Mbases); "
+          f"{cfg['mesh_queries']} queries x {cfg['mesh_total']} x {cfg['sketch']}, k={cfg['knbn']}: MeshSearcher "
+          f"{pm['exact_s'] * 1e3:.1f} ms warm ({pm['exact_cold_s'] * 1e3:.1f} cold), MeshMxuSearcher "
+          f"{pm['mxu_s'] * 1e3:.1f} ms warm ({pm['mxu_cold_s'] * 1e3:.1f} cold, build {pm['mxu_build_s']:.2f} s); "
+          f"MeshGraphSearcher {cfg['shard_queries']} queries x {cfg['shard_total']} in {pm['members']} shards "
+          f"{pm['graph_s'] * 1e3:.1f} ms warm ({pm['graph_cold_s'] * 1e3:.1f} cold, {pm['graph_hops']} hops, "
+          f"build {pm['graph_build_s']:.2f} s), request of 8 with the mesh {pm['graph_request_s']:.1f} s; "
+          f"CLI --mesh -1 tohnsw {pm['cli_build_s']:.1f} s, request {pm['cli_request_s']:.1f} s; rows drawn "
+          f"in {pm['gen_s']:.1f} s; waited {pm['process_wait_s']:.1f} s for the two processes")
     print(f"  timing superani on {card}: sketch {sa['mbases'] / sa['sketch_s']:.1f} Mbases/s "
           f"({sa['mbases']:.1f} Mbases, parsed), compare {sa['pairs'] / sa['compare_s']:.0f} pairs/s; "
           f"CLI {sa['cli_s']:.1f} s for {sa['pairs']} pairs")

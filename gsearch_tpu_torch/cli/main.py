@@ -6,7 +6,7 @@ ann / import / reformat, and the tools bindash / hypermash / superaai /
 superani / hnsw2knn / hnswcore / bigsig / hmmsearch / genepred, forwarded to their
 own parsers; plus `--device`
 (default cuda; asking for cuda without a card raises, the CPU is asked
-for with --device cpu).  As in the
+for with --device cpu) and `--mesh` (pipeline.py, parallel/mesh.py).  As in the
 reference, add/request take no algorithm flags: everything is reloaded
 from the database's parameters.json.
 """
@@ -27,7 +27,9 @@ def _add_global(p: argparse.ArgumentParser, top: bool = False) -> None:
     p.add_argument("--pio", type=int, default=default(0), help="files per parallel IO group")
     p.add_argument("--nbthreads", type=int, default=default(0), help="host parse threads")
     p.add_argument("--mesh", type=int, default=default(0),
-                   help="device-mesh sharding: not ported, any value but 0 is rejected")
+                   help="shard sketching and search over a mesh of devices (0 off, -1 all, N the "
+                        "first N; on the CPU the N members share the one device); replaces the "
+                        "reference's multiple_build/multiple_search scripts")
     p.add_argument("--device", default=default("cuda"),
                    help="torch device: cuda (default; raises without a card) or cpu")
 
@@ -35,7 +37,7 @@ def _add_global(p: argparse.ArgumentParser, top: bool = False) -> None:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="gsearch_tpu_torch",
-        description="genome sketch-and-search on one torch device (gsearch capabilities)",
+        description="genome sketch-and-search on torch devices (gsearch capabilities)",
     )
     _add_global(ap, top=True)
     sub = ap.add_subparsers(dest="command", required=True)

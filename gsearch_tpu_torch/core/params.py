@@ -158,8 +158,9 @@ class ProcessingParams:
 class ComputingParams:
     """Runtime-only settings, never persisted: nb_files_par is `--pio`
     (files read into memory per IO group), nb_threads `--nbthreads` (host
-    parse workers), mesh_devices `--mesh` (not ported: any value but 0 is
-    rejected by the pipeline)."""
+    parse workers), mesh_devices `--mesh` (members of the device mesh the
+    pipeline shards over, parallel/mesh.py: 0 off, -1 every device, N the
+    first N)."""
 
     nb_files_par: int = 0
     nb_threads: int = 0

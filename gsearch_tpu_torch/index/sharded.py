@@ -1,4 +1,4 @@
-"""Sharded graph index: D HnswIndex shards searched as one, on one device.
+"""Sharded graph index: D HnswIndex shards searched as one.
 
 Counterpart of gsearch_tpu/index/sharded.py (the `hnsw_sharded` kind that
 `gsearch_tpu tohnsw --index hnsw --mesh N` writes):
@@ -14,9 +14,9 @@ Counterpart of gsearch_tpu/index/sharded.py (the `hnsw_sharded` kind that
   therefore broken by shard order, not by id, unlike the port's standing
   (distance, id) order of one index.
 
-The reference's one-dispatch mesh search (parallel/mesh.py
-MeshGraphSearcher) is not ported; the port's `request` on a sharded
-database takes the reference's sequential branch.
+This class searches the shards one after another on one device; a
+request with a mesh of n_shards members searches each shard on its own
+member instead (parallel/mesh.py `MeshGraphSearcher`).
 """
 
 from __future__ import annotations

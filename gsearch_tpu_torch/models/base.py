@@ -1,4 +1,5 @@
-"""Sketcher base: genome code rows -> dart races -> signatures, on one device.
+"""Sketcher base: genome code rows -> dart races -> signatures, on one device
+or split over the members of a mesh (`set_mesh`, parallel/mesh.py).
 
 Counterpart of gsearch_tpu/models/base.py.  A genome is cut into rows:
 one row padded to its block bucket (`block_length`) when it fits the
@@ -117,6 +118,16 @@ class SketcherBase:
         self.is_aa = params.data_t == DataType.AA
         if self.is_aa and params.kmer_size > 12:
             raise ValueError("AA kmer_size must be <= 12 (reference: aasketch.rs:464)")
+        self.mesh = None  # parallel/mesh.DeviceMesh: rows split over its members
+
+    def set_mesh(self, mesh) -> None:
+        """Data-parallel sketching over this process's mesh members: each
+        launch group's rows, padded with empty rows to a multiple of the
+        member count, are split evenly over the members, raced on each
+        member's device and gathered back in row order onto the sketcher's
+        device, where pieces merge and signatures finalize.  Rows race
+        independently, so the signatures equal those without a mesh."""
+        self.mesh = mesh
 
     # ---- subclass interface -------------------------------------------------
 
@@ -153,6 +164,20 @@ class SketcherBase:
         """uint8 code rows [b, nb] on the device -> one race per row."""
         hi, lo, valid = self._windows(codes)
         return self._race(*self._darts(hi, lo, valid))
+
+    def _race_group(self, arr: np.ndarray) -> RaceResult:
+        """One launch group's code rows [b, nb] -> their races on the
+        sketcher's device; with a mesh, raced split over its members."""
+        if self.mesh is None:
+            return self._race_rows(torch.from_numpy(arr).to(self.device))
+        devs = self.mesh.devices
+        per = -(-arr.shape[0] // len(devs))
+        padded = np.full((per * len(devs), arr.shape[1]), 255, dtype=np.uint8)
+        padded[: arr.shape[0]] = arr
+        parts = [self._race_rows(torch.from_numpy(padded[j * per : (j + 1) * per]).to(dev))
+                 for j, dev in enumerate(devs)]
+        return RaceResult(*(torch.cat([p[f].to(self.device) for p in parts])[: arr.shape[0]]
+                            for f in range(3)))
 
     def _pieces(self, codes) -> List[Tuple[np.ndarray, int]]:
         """The reference's row partition of one genome: [(codes, row length)]."""
@@ -217,7 +242,7 @@ class SketcherBase:
                 for row, r in enumerate(chunk):
                     piece = rows[r][0]
                     arr[row, : len(piece)] = piece
-                race = self._race_rows(torch.from_numpy(arr).to(dev))
+                race = self._race_group(arr)
                 idx = torch.tensor(chunk, dtype=torch.int64, device=dev)
                 found[idx], key[idx], payload[idx] = race
 

@@ -1,15 +1,22 @@
 """Orchestration pipelines: build (tohnsw), add, and request.
 
-Counterpart of gsearch_tpu/pipeline.py on one torch device: host ingest
-(walk + parse on a producer thread, parallel parse workers; DNA files, or
-protein files in amino-acid mode) -> device sketching by any of the six
-algorithms -> flat or graph index -> dump, and the request path that reloads
-a database, sketches the queries and writes gsearch.neighbors.txt.  `add`
-converts a flat database that grows past `flat_auto_limit` to the graph
-index, as the reference does.  A sharded graph database (written by a
-`--mesh N` build of gsearch_tpu) is requested and grown shard by shard
-on the one device, the reference's `mesh_devices == 0` branch; mesh
-sharding itself is not ported and is rejected.
+Counterpart of gsearch_tpu/pipeline.py: host ingest (walk + parse on a
+producer thread, parallel parse workers; DNA files, or protein files in
+amino-acid mode) -> device sketching by any of the six algorithms -> flat
+or graph index -> dump, and the request path that reloads a database,
+sketches the queries and writes gsearch.neighbors.txt.  `add` converts a
+flat database that grows past `flat_auto_limit` to the graph index, as the
+reference does.
+
+With a mesh (`--mesh N`, `ComputingParams.mesh_devices`, or the `mesh=`
+keyword, which places members on devices as the caller lists them;
+parallel/mesh.py): sketching is data-parallel over the members; a graph
+build writes the sharded kind with one shard a member (a 1-member mesh
+writes a plain graph); a request searches a sharded graph with
+`MeshGraphSearcher` (a shard/member mismatch is logged and the shards are
+searched one after another, the reference's fallback), and any other
+database row-sharded, by `MeshMxuSearcher` on CUDA at MXU_MIN_POINTS rows
+or more (where the reference takes it on a TPU), else by `MeshSearcher`.
 """
 
 from __future__ import annotations
@@ -51,10 +58,19 @@ def flat_auto_limit(sketch_size: int) -> int:
     return min(FLAT_AUTO_CAP, FLAT_AUTO_BYTES // max(4 * sketch_size, 1))
 
 
-def _check_computing(computing: ComputingParams) -> None:
-    if computing.mesh_devices:
-        raise NotImplementedError(
-            "mesh sharding is not ported yet (ROADMAP.md: torch.distributed)")
+def _mesh_for(computing: ComputingParams, mesh, device: torch.device):
+    """The mesh a call shards over: the caller's, else one of
+    `computing.mesh_devices` members on `device`'s kind (0: none; -1: all)."""
+    if mesh is not None or not computing.mesh_devices:
+        return mesh
+    from .parallel.mesh import make_device_mesh
+
+    return make_device_mesh(computing.mesh_devices, device=device)
+
+
+def _mesh_size(mesh) -> int:
+    """Shards a graph build writes: one a mesh member (0 without a mesh)."""
+    return 0 if mesh is None else mesh.size
 
 
 def _iter_parsed(paths, is_aa: bool, block_flag: bool, computing: ComputingParams,
@@ -96,13 +112,18 @@ def _sketch_dir(
     seqdict: SeqDict,
     timer: StageTimer,
     device: torch.device,
+    mesh=None,
 ) -> List[np.ndarray]:
     """Walk + parse + sketch every FASTA under dirpath; extends seqdict and
     returns one signature per dictionary entry, in rank order.  A producer
     thread parses into a bounded queue while this thread submits device
-    batches, which run asynchronously on CUDA."""
+    batches, which run asynchronously on CUDA; with a mesh, each batch's
+    rows are split over its members."""
     is_aa = params.sketch.data_t.value == "AA"
     sketcher = make_sketcher(params.sketch, device=device)
+    if mesh is not None:
+        sketcher.set_mesh(mesh)
+        log.info("sketching sharded over %d members", len(mesh.devices))
     paths = walk_fasta_dir(dirpath, is_aa=is_aa)
     if not paths:
         raise FileNotFoundError(f"no FASTA files under {dirpath}")
@@ -191,17 +212,20 @@ def _new_index(params: ProcessingParams, sig_dtype, kind: str, nb_hint: int,
 
 def build_database(genome_dir: str, out_dir: str, params: ProcessingParams,
                    computing: ComputingParams | None = None, index_kind: str = "auto",
-                   *, device: torch.device) -> dict:
-    """tohnsw: sketch a directory tree, build + dump a database."""
+                   *, device: torch.device, mesh=None) -> dict:
+    """tohnsw: sketch a directory tree, build + dump a database.  `mesh`
+    (default: made from computing.mesh_devices) shards the sketching, and
+    a graph build over it writes one shard a member."""
     computing = computing or ComputingParams()
-    _check_computing(computing)
+    mesh = _mesh_for(computing, mesh, device)
     timer = StageTimer()
     t0 = time.time()
     os.makedirs(out_dir, exist_ok=True)
     seqdict = SeqDict()
-    sigs = _sketch_dir(genome_dir, params, computing, seqdict, timer, device)
+    sigs = _sketch_dir(genome_dir, params, computing, seqdict, timer, device, mesh)
     sig_mat = np.stack(sigs)
-    index = _new_index(params, sig_mat.dtype, index_kind, len(sigs), device)
+    index = _new_index(params, sig_mat.dtype, index_kind, len(sigs), device,
+                       n_shards=_mesh_size(mesh))
     with timer.stage("index_insert"):
         index.insert(sig_mat)
     if index.nb_points != len(seqdict):
@@ -238,10 +262,12 @@ def _migrate_flat_if_needed(index, params: ProcessingParams, n_after: int,
 
 
 def add_to_database(db_dir: str, new_dir: str, computing: ComputingParams | None = None,
-                    *, device: torch.device) -> dict:
-    """add: incremental insertion, parameters reloaded from the database."""
+                    *, device: torch.device, mesh=None) -> dict:
+    """add: incremental insertion, parameters reloaded from the database;
+    `mesh` (default: made from computing.mesh_devices) shards the
+    sketching."""
     computing = computing or ComputingParams()
-    _check_computing(computing)
+    mesh = _mesh_for(computing, mesh, device)
     params = ProcessingParams.reload_json(db_dir)
     seqdict = SeqDict.reload_json(db_dir)
     state = ProcessingState.reload_json(db_dir)
@@ -250,7 +276,7 @@ def add_to_database(db_dir: str, new_dir: str, computing: ComputingParams | None
         raise ValueError(f"{db_dir}: index holds {index.nb_points} points, seqdict {len(seqdict)}")
     timer = StageTimer()
     t0 = time.time()
-    sigs = _sketch_dir(new_dir, params, computing, seqdict, timer, device)
+    sigs = _sketch_dir(new_dir, params, computing, seqdict, timer, device, mesh)
     index = _migrate_flat_if_needed(index, params, len(seqdict), device)
     with timer.stage("index_insert"):
         index.insert(np.stack(sigs))
@@ -300,20 +326,42 @@ def dump_with_placeholders(src_dir: str, out_dir: str, index) -> None:
     dumpall(out_dir, index, seqdict, params, state)
 
 
+def _search(index, queries: np.ndarray, knbn: int, ef_search: int, mesh):
+    """The request's k-NN: the index's own search without a mesh, else the
+    reference's three mesh branches."""
+    if mesh is None:
+        return index.search(queries, knbn=knbn, ef_search=ef_search)
+    from .parallel.mesh import MeshGraphSearcher, MeshMxuSearcher, MeshSearcher
+
+    if isinstance(index, ShardedHnswIndex):
+        try:
+            searcher = MeshGraphSearcher(index, mesh)
+        except ValueError as e:  # shard/member mismatch
+            log.warning("mesh graph search unavailable (%s); searching shards sequentially", e)
+            return index.search(queries, knbn=knbn, ef_search=ef_search)
+        return searcher.search(queries, knbn=knbn, ef_search=ef_search)
+    sigs = index.get_sigs()
+    if mesh.devices[0].type == "cuda" and sigs.shape[0] >= FlatIndex.MXU_MIN_POINTS:
+        return MeshMxuSearcher(sigs, mesh).search(queries, knbn=knbn)
+    return MeshSearcher(sigs, mesh).search(queries, knbn=knbn)
+
+
 def request_database(db_dir: str, req_dir: str, nb_answers: int,
                      computing: ComputingParams | None = None, out_dir: str = ".",
-                     ef_search: int = EF_SEARCH, *, device: torch.device) -> dict:
-    """request: batched k-NN of query genomes against a reloaded database."""
+                     ef_search: int = EF_SEARCH, *, device: torch.device, mesh=None) -> dict:
+    """request: batched k-NN of query genomes against a reloaded database;
+    `mesh` (default: made from computing.mesh_devices) shards the
+    sketching and the search (module docstring)."""
     computing = computing or ComputingParams()
-    _check_computing(computing)
+    mesh = _mesh_for(computing, mesh, device)
     params = ProcessingParams.reload_json(db_dir)
     seqdict = SeqDict.reload_json(db_dir)
     index = load_index(db_dir, device)
     timer = StageTimer()
     req_dict = SeqDict()
-    sigs = _sketch_dir(req_dir, params, computing, req_dict, timer, device)
+    sigs = _sketch_dir(req_dir, params, computing, req_dict, timer, device, mesh)
     with timer.stage("search"):
-        dists, ids = index.search(np.stack(sigs), knbn=nb_answers, ef_search=ef_search)
+        dists, ids = _search(index, np.stack(sigs), nb_answers, ef_search, mesh)
 
     matcher = Matcher(threshold=OUT_THRESHOLD)
     os.makedirs(out_dir, exist_ok=True)

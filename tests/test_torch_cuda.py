@@ -539,3 +539,65 @@ def test_genepred_on_card_matches_cpu(cuda_device, tmp_path):
             outs[dev] = [(tmp_path / (dev + ext)).read_bytes() for ext in (".faa", ".ffn", ".gff", ".out")]
         assert outs["cuda"] == outs["cpu"], train
         assert outs["cuda"][0].count(b">") > 50
+
+
+def test_mesh_searchers_on_card_match_cpu(cuda_device):
+    """MeshSearcher, MeshMxuSearcher and MeshGraphSearcher with 4 members
+    on the one card equal the same searchers with 4 CPU members, bitwise;
+    each member's K1 / K2 launch is counted; and the mesh sketcher's
+    signatures equal the plain sketcher's."""
+    from gsearch_tpu_torch.index.sharded import ShardedHnswIndex
+    from gsearch_tpu_torch.parallel.mesh import (MeshGraphSearcher, MeshMxuSearcher, MeshSearcher,
+                                                 make_device_mesh)
+
+    rng = np.random.default_rng(71)
+    sigs = _cloud(rng, 5000, 256, 40)
+    q = sigs[rng.choice(5000, 24, replace=False)].copy()
+    q[:12, :30] = rng.integers(0, 1 << 30, size=(12, 30), dtype=np.uint32)
+    cpu = torch.device("cpu")
+    meshes = {d.type: make_device_mesh(4, device=d, devices=[d] * 4) for d in (cuda_device, cpu)}
+    index = ShardedHnswIndex(sketch_size=256, sig_dtype=np.uint32, n_shards=4, max_nb_conn=16,
+                             ef_construction=64, search_prefix=128, device=cpu)
+    index.insert(sigs, batch_size=512)
+    res = {}
+    for kind, mesh in meshes.items():
+        before = dict(cuda_lib.launches)
+        res[kind] = [MeshSearcher(sigs, mesh).search(q, 10), MeshMxuSearcher(sigs, mesh).search(q, 10),
+                     MeshGraphSearcher(index, mesh).search(q, 10, ef_search=64)]
+        if kind == "cuda":
+            assert cuda_lib.launches["hamming_frac"] - before["hamming_frac"] >= 4 + 4  # sweeps, entry tiers
+            assert cuda_lib.launches["gather_hamming_p2"] - before["gather_hamming_p2"] == 4
+            assert cuda_lib.launches["gather_hamming"] - before["gather_hamming"] > 4
+    for (d, i), (d_cpu, i_cpu) in zip(res["cuda"], res["cpu"]):
+        np.testing.assert_array_equal(i, i_cpu)
+        np.testing.assert_array_equal(d.view(np.uint32), d_cpu.view(np.uint32))
+    assert (res["cuda"][0][0][12:, 0] == 0).all()
+    params = SeqSketcherParams(kmer_size=16, sketch_size=512, algo="OPTDENS", data_t="DNA")
+    genomes = [rng.integers(0, 4, n).astype(np.uint8) for n in (30_000, 70_001, 9)]
+    plain = make_sketcher(params, device=cuda_device)
+    plain.MAX_BLOCK_LOG2 = 14
+    meshed = make_sketcher(params, device=cuda_device)
+    meshed.MAX_BLOCK_LOG2 = 14
+    meshed.set_mesh(meshes["cuda"])
+    np.testing.assert_array_equal(meshed.sketch_many(genomes).view(np.uint32),
+                                  plain.sketch_many(genomes).view(np.uint32))
+
+
+def test_mesh_two_processes_on_card_over_gloo(cuda_device, tmp_path):
+    """Two processes on cuda:0, each holding 2 of 4 members (chip_smoke's
+    two-process runner), merging over gloo: the lists of one process's
+    4-member CPU mesh."""
+    import chip_smoke
+    from gsearch_tpu_torch.parallel.mesh import MeshSearcher, make_device_mesh
+
+    sigs = np.random.default_rng(12).integers(0, 1 << 20, size=(20_001, 384)).astype(np.uint32)
+    np.save(tmp_path / "mesh_db.npy", sigs)
+    np.save(tmp_path / "mesh_q.npy", sigs[::701])
+    procs = chip_smoke.start_mesh_processes(str(tmp_path), 9, cuda_device, 2)
+    ranks = chip_smoke.finish_mesh_processes(procs, str(tmp_path), timeout=180)
+    d, ids = MeshSearcher(sigs, make_device_mesh(4, device=torch.device("cpu"))).search(sigs[::701], 9)
+    for rank, got in enumerate(ranks):
+        assert int(got["size"]) == 4 and float(got["total"]) == 6.0
+        assert list(got["members"]) == [2 * rank, 2 * rank + 1]
+        np.testing.assert_array_equal(got["ids"], ids)
+        np.testing.assert_array_equal(got["d"].view(np.uint32), d.view(np.uint32))

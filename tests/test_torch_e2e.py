@@ -119,8 +119,11 @@ def test_unported_paths_raise(recipe, tmp_path):
     with pytest.raises(ValueError, match="unknown index kind"):
         torch_main(["request", "-b", str(unknown), "-n", "5", "-r", str(root / "queries"),
                     "-o", str(tmp_path / "o"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="mesh"):
-        torch_main(["--mesh", "2", "tohnsw", "-d", db, *BUILD, "-o", str(tmp_path / "m"), "--device", "cpu"])
+    if torch.cuda.device_count() < 2:  # --mesh 2 on a machine with fewer cards names both counts
+        from gsearch_tpu_torch.parallel.mesh import make_device_mesh
+
+        with pytest.raises(ValueError, match=f"needs 2 CUDA cards, but {torch.cuda.device_count()}"):
+            make_device_mesh(2, device=torch.device("cuda"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             torch_main(["tohnsw", "-d", db, *BUILD, "-o", str(tmp_path / "c")])

@@ -23,6 +23,7 @@ from gsearch_tpu_torch.models.seedchain import SeedChainer
 from gsearch_tpu_torch.index import FlatIndex, HnswIndex, from_jax_database
 from gsearch_tpu_torch.models import make_sketcher
 from gsearch_tpu_torch.models.optdens import OptDensSketcher
+from gsearch_tpu_torch.parallel.mesh import dryrun_multichip, make_device_mesh
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(glob.glob(os.path.join(REPO, "gsearch_tpu_torch", "**", "*.py"), recursive=True))
@@ -39,7 +40,8 @@ def test_sources_found():
     for mod in ("index/sharded.py", "analysis/kgraph.py", "analysis/coreset.py", "analysis/embed.py",
                 "models/seedchain.py", "cli/hnsw2knn.py", "cli/hnswcore.py", "cli/superani.py",
                 "index/bigsi.py", "cli/bigsig.py", "index/refimport.py", "models/hmmprofile.py",
-                "cli/hmmsearch.py", "models/genepred.py", "cli/genepred.py", "ops/viterbi.py"):
+                "cli/hmmsearch.py", "models/genepred.py", "cli/genepred.py", "ops/viterbi.py",
+                "parallel/__init__.py", "parallel/mesh.py"):
         assert f"gsearch_tpu_torch/{mod}" in rel, mod
 
 
@@ -99,3 +101,7 @@ def test_entry_points_require_a_device(tmp_path):
         predict_genes(b"ACGT" * 40)
     with pytest.raises(TypeError, match="device"):
         self_trained_params(b"ACGT" * 40)
+    with pytest.raises(TypeError, match="device"):
+        make_device_mesh(2)
+    with pytest.raises(TypeError, match="device"):
+        dryrun_multichip(2)
