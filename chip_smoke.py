@@ -151,14 +151,19 @@ CUDA card it exits non-zero before printing any result.
      and precision against the planted truth (a call is right when it
      shares its 3' end and strand) at or above the floors set from the
      CPU rehearsal; `-t self` on genome 0, timed; genome 0 again with
-     `--device cpu`: every contig's decoded path equal to the card's and
-     the four files byte-identical; the proteomes of the eight genomes
-     through `tohnsw --aa -k 7` and those of 1%-substituted copies of two
-     of them through `request` (K1 on the card): each query's best hit is
-     its source; the decoder kernel against its plain version on the card,
+     `--device cpu`, `-t standard` and `-t self`: every contig's decoded
+     path equal to the card's and the four files byte-identical; the
+     proteomes of the eight genomes through `tohnsw --aa -k 7` and those
+     of 1%-substituted copies of two of them through `request` (K1 on the
+     card): each query's best hit is its source; the fused decode
+     (`gs_genepred_decode`, codes to path in one launch) against the plain
+     composition (`_precompute_scores` then `viterbi_plain`) on the card,
      bitwise, at one 64-window dispatch and at the largest genome's
-     windows in one launch, each timed (CUDA events, device-only time)
-     beside its bound and serial chain.
+     windows, with the standard tables and with genome 0's self-trained
+     ones, and the memory-fed `gs_viterbi` against `viterbi_plain`; each
+     timed (CUDA events over launches, and around the bare ctypes call as
+     the device-only time) beside its bound and serial chain; the
+     genome's `_decode_path` wall with both table sets.
   K2 sites.  Each recorded call is re-run with its own arguments: every
      form bitwise against the plain version, timed under each form, the
      plan's and the plain version (CUDA events; device-only time from
@@ -176,8 +181,8 @@ in the graph members' hops and reranks; the two processes' launches are
 their own); superani (none: plain torch); bigsig
 (none: plain torch); import (K2 parts=2 and K1's self pairs in the bulk
 build, K2 and the int8 matmul in the requests); hmmsearch (none: plain
-torch); genepred (the decoder kernel in every CLI run, K1 in the AA
-request);
+torch); genepred (the fused decode kernel in every CLI run, K1 in the
+AA request; `gs_viterbi`, the memory-fed form, is off the main path);
 algos (K1 by every build's request and by bindash, K2 and the int8 matmul
 by the grown databases).  The line before the last
 is the kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -2177,17 +2182,41 @@ def phase_hmmsearch(dev, cfg, root) -> dict:
 F32_OPS_S, F32_OP_S, VITERBI_CHAIN_OPS = 67e12, 4 / 1.98e9, 8
 
 
-def viterbi_bound(nwin: int, w: int) -> dict:
-    """The decoder's work: e [B, W, 11], four bonus vectors, dp0 and the
-    transition table read once, the int8 path written once; per base and
-    window 121 candidates of three adds, 110 compares and 11 emission adds
-    (f32, 67 TFLOP/s).  `chain_ms` is the serial floor: W dependent steps,
-    each at least VITERBI_CHAIN_OPS dependent f32 operations."""
-    nbytes = nwin * w * (11 * 4 + 4 * 4 + 1) + nwin * 11 * 4 + 121 * 4
-    ops = nwin * w * (121 * 3 + 110 + 11)
+def viterbi_bound(nwin: int, w: int, in_bytes: int | None = None, extra_ops: int = 0) -> dict:
+    """The decoder's work.  `gs_viterbi`: e [B, W, 11], four bonus vectors,
+    dp0 and the transition table read once, the int8 path written once.
+    The fused `gs_genepred_decode` (in_bytes given): its inputs, the u8
+    codes and the tables, `in_bytes` of them, read once and the path
+    written once; `extra_ops`, the precompute's f32 operations this run's
+    data needs (context sums at its hits).  Per base and window 121
+    candidates of three adds, 110 compares and 11 emission adds (f32, 67
+    TFLOP/s).  `chain_ms` is the serial floor: W dependent steps, each at
+    least VITERBI_CHAIN_OPS dependent f32 operations."""
+    if in_bytes is None:
+        in_bytes = nwin * w * (11 * 4 + 4 * 4) + nwin * 11 * 4 + 121 * 4
+    nbytes = in_bytes + nwin * w
+    ops = nwin * w * (121 * 3 + 110 + 11) + extra_ops
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops, "chain_ms": w * VITERBI_CHAIN_OPS * F32_OP_S * 1e3}
+
+
+def launch_ms(fn, reps: int) -> float:
+    """The least device time of one call of fn, CUDA events recorded just
+    around it (fn should be a launch bound once, ops/viterbi's
+    `*_launch`), after one warm-up."""
+    fn()
+    best = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        t = start.elapsed_time(end)
+        best = t if best is None else min(best, t)
+    return best
 
 
 def _synth():
@@ -2299,7 +2328,10 @@ def phase_genepred(dev, cfg, root) -> dict:
                 paths_card = [out for _, _, out in rec.calls]
             rec.calls.clear()
     res["standard_s"] = sum(res["walls"].values())
-    res["self_s"] = genepred(check, os.path.join(out_dir, "self"), dev.type, "-t", "self")
+    with CallRecorder(gp, "self_trained_params") as srec, CallRecorder(gp, "_decode_path") as rec:
+        res["self_s"] = genepred(check, os.path.join(out_dir, "self"), dev.type, "-t", "self")
+    self_params = srec.calls[-1][2]
+    paths_self_card = [out for _, _, out in rec.calls]
     for q in corpus["queries"]:
         name = os.path.basename(q)[:-4]
         genepred(q, os.path.join(out_dir, name), dev.type)
@@ -2316,8 +2348,8 @@ def phase_genepred(dev, cfg, root) -> dict:
         raise AssertionError("request of the queries' proteomes failed")
     res["aa_request_s"] = time.perf_counter() - t0
     res["counts"] = dict(cuda_lib.launches)
-    if dev.type == "cuda" and (res["counts"]["viterbi"] == 0 or res["counts"]["hamming_frac"] == 0):
-        raise AssertionError(f"genepred and its AA request did not go through the decoder kernel and "
+    if dev.type == "cuda" and (res["counts"]["genepred_decode"] == 0 or res["counts"]["hamming_frac"] == 0):
+        raise AssertionError(f"genepred and its AA request did not go through the fused decode kernel and "
                              f"K1: {res['counts']}")
     source = {os.path.basename(q)[:-4] + ".faa": os.path.basename(s)[:-4] + ".faa"
               for q, s in corpus["queries"].items()}
@@ -2349,17 +2381,76 @@ def phase_genepred(dev, cfg, root) -> dict:
     name = os.path.basename(check)[:-4]
     for ext in (".faa", ".ffn", ".gff", ".out"):
         _same_files(f"genepred {ext}", os.path.join(out_dir, name + ext), os.path.join(out_dir, "cpu" + ext))
+    with CallRecorder(gp, "_decode_path") as rec:
+        res["self_cpu_s"] = genepred(check, os.path.join(out_dir, "self_cpu"), "cpu", "-t", "self")
+    paths_self_cpu = [out for _, _, out in rec.calls]
+    if len(paths_self_cpu) != len(paths_self_card) or not all(
+            np.array_equal(a, b) for a, b in zip(paths_self_card, paths_self_cpu)):
+        raise AssertionError("genepred -t self: the decoded paths on the card differ from the CPU's")
+    for ext in (".faa", ".ffn", ".gff", ".out"):
+        _same_files(f"genepred -t self {ext}", os.path.join(out_dir, "self" + ext),
+                    os.path.join(out_dir, "self_cpu" + ext))
 
-    # ---- the kernel against its plain version, timed
+    # ---- both decoder forms against their plain versions, timed: the fused
+    # decode (codes -> path) with the standard tables and with genome 0's
+    # self-trained ones (context, noncoding, dicodon tables, start prior),
+    # gs_viterbi on the standard tables' emissions
     p = gp.GenePredParams()
     tb = torch.as_tensor(tv.transition_table(p.p_gene_start, tv.NEG_BIG), device=dev)
-    kernel = {}
     genome = gp.encode_dna(next(parse_fasta(max(corpus["files"], key=os.path.getsize))).seq)
     wins = gp._windows(genome)[0]
+    sp = self_params
+    models = {"standard": dict(codon_lu=p.codon_logusage, dicodon_lu=None),
+              "self": dict(codon_lu=sp.codon_logusage, dicodon_lu=sp.dicodon_logusage,
+                           rdicodon_lu=sp.rdicodon_logusage if sp.dicodon_logusage is not None else None,
+                           nc_lm=sp.noncoding_lm, ctx=sp.ctx,
+                           ctx_aff=sp.ctx_aff if sp.ctx_aff is not None else np.tile(np.float32([1, 0]), (4, 1)),
+                           start_prior=sp.start_prior)}
+    scals = {model: dict(start_codon_bonus=q.start_codon_bonus, stop_codon_bonus=q.stop_bonus,
+                         ctx_weight=q.ctx_weight, ctx_cap=q.ctx_cap, ctx_neg_cap=q.ctx_neg_cap)
+             for model, q in (("standard", p), ("self", sp))}
+    fused, vit = {}, {}
     for tag, rows in (("dispatch", wins[: g["dispatch"]]), ("genome", wins)):
         codes = torch.from_numpy(rows).to(dev)
-        scores = gp._precompute_scores(codes, p.codon_logusage, None, p.start_codon_bonus, p.stop_bonus)
         dp0 = torch.zeros((len(rows), 11), dtype=torch.float32, device=dev)
+        dp0[0] = tv.NEG_BIG
+        dp0[0, tv.NC] = 0.0
+        std = gp._precompute_scores(codes, p.codon_logusage, None, p.start_codon_bonus, p.stop_bonus)
+        # boundary-codon hits (the four tables'), where a context model sums
+        # its 61 taps: positive bonuses without context or prior tables
+        hits = sum(int((x > 0).sum()) for x in std[1:])
+        for model, tabs in models.items():
+            scal = scals[model]
+            kw = {**tabs, **scal}
+            got = gp._decode_windows(codes, dp0, tb, **kw)
+            scores = gp._precompute_scores(codes, **kw)
+            want = tv.viterbi_plain(*scores, dp0, tb)
+            err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+            if err:
+                raise AssertionError(f"genepred_decode {tag} {model}: the kernel's path differs from the plain "
+                                     f"composition's")
+            ent = {"windows": len(rows), "err": err, "model": model}
+            if dev.type == "cuda":
+                on = {k: None if v is None else torch.as_tensor(np.asarray(v, np.float32), device=dev)
+                      for k, v in tabs.items()}
+                ent["ms"] = event_ms(lambda: tv.genepred_decode(codes, dp0, tb, **on, **scal), 3)
+                ent["device_ms"] = launch_ms(tv.genepred_decode_launch(codes, dp0, tb, **on, **scal), 3)
+                ent["profiler_ms"] = device_ms(lambda: tv.genepred_decode(codes, dp0, tb, **on, **scal), 3,
+                                               "decode_kernel")
+                ent["plain_ms"] = event_ms(
+                    lambda: tv.viterbi_plain(*gp._precompute_scores(codes, **kw), dp0, tb), 1)
+                # inputs read once: the codes, dp0, tb and the tables; the
+                # precompute's f32 operations: 4 bonus adds a base and, with
+                # a context model, 61 adds and 4 calibration operations a hit
+                table_bytes = sum(4 * np.asarray(v).size for v in tabs.values() if v is not None)
+                ctx_hits = hits if tabs.get("ctx") is not None else 0
+                ent.update(viterbi_bound(len(rows), rows.shape[1],
+                                         in_bytes=codes.numel() + 4 * dp0.numel() + 4 * 121 + table_bytes,
+                                         extra_ops=ctx_hits * (61 + 4) + 4 * codes.numel()))
+                ent["ctx_hits"] = ctx_hits
+            fused[tag if model == "standard" else f"{tag}_{model}"] = ent
+            del scores, want
+        scores = std
         args = (*scores, dp0, tb)
         got = tv.viterbi(*args)
         want = tv.viterbi_plain(*args)
@@ -2369,26 +2460,29 @@ def phase_genepred(dev, cfg, root) -> dict:
         ent = {"windows": len(rows), "err": err}
         if dev.type == "cuda":
             ent["ms"] = event_ms(lambda: tv.viterbi(*args), 3)
-            ent["device_ms"] = device_ms(lambda: tv.viterbi(*args), 3, "")  # the launch is this kernel alone
+            ent["device_ms"] = launch_ms(tv.viterbi_launch(*args), 3)
             ent["plain_ms"] = event_ms(lambda: tv.viterbi_plain(*args), 1)
             ent.update(viterbi_bound(len(rows), rows.shape[1]))
-        kernel[tag] = ent
-        del scores, args
+        vit[tag] = ent
+        del scores, args, std
     if dev.type == "cuda":
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    gp._decode_path(genome, p, p.codon_logusage, None, device=dev)
-    res["decode_s"] = time.perf_counter() - t0
+    for model, params in (("standard", p), ("self", sp)):
+        t0 = time.perf_counter()
+        gp._decode_path(genome, params, params.codon_logusage, params.dicodon_logusage, params.noncoding_lm,
+                        params.ctx, params.ctx_aff, rdicodon_lu=params.rdicodon_logusage, device=dev)
+        res["decode_s" if model == "standard" else "decode_self_s"] = time.perf_counter() - t0
     res["decode_bases"] = len(genome)
-    res["kernel"] = kernel
+    res["fused"], res["kernel"] = fused, vit
     print(f"phase genepred {len(corpus['files'])} planted genomes ({res['bases'] / 1e6:.1f} Mbases, "
           f"{n_genes} genes called): recall >= {worst[0]:.3f}, precision >= {worst[1]:.3f} "
           f"(floors {g['recall_floor']} / {g['precision_floor']}); -t self on {name}: recall "
           f"{self_rp[0]:.3f}, precision {self_rp[1]:.3f}; card vs CPU on {name} "
           f"({os.path.getsize(check) / 1e6:.1f} MB): decoded paths and the four files identical; "
-          f"AA chain: each query's best hit is its source (distances {lo:.4f}..{hi:.4f}); decoder "
-          f"kernel bitwise equal to the plain version at {kernel['dispatch']['windows']} and "
-          f"{kernel['genome']['windows']} windows")
+          f"AA chain: each query's best hit is its source (distances {lo:.4f}..{hi:.4f}); -t self on "
+          f"{name}: card vs CPU paths and the four files identical; the fused decode bitwise equal to "
+          f"the plain composition at {fused['dispatch']['windows']} and {fused['genome']['windows']} "
+          f"windows, standard and self-trained tables; gs_viterbi bitwise equal to the plain decoder")
     return res
 
 
@@ -3042,15 +3136,22 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
           f"({gpd['bases'] / 1e6 / gpd['standard_s']:.2f} Mbases/s; s a genome: {walls}); -t self on "
           f"genome 0 {gpd['self_s']:.1f} s; the same genome with --device cpu {gpd['cpu_s']:.1f} s; "
           f"AA chain tohnsw --aa {gpd['aa_build_s']:.2f} s, request {gpd['aa_request_s']:.2f} s")
-    ent = gpd["kernel"]["genome"]
+    ent = gpd["fused"]["genome"]
     print(f"  timing genepred decode on {card}: {gpd['decode_bases'] / 1e6:.2f} Mbases "
-          f"({ent['windows']} windows) in {gpd['decode_s'] * 1e3:.1f} ms "
-          f"({gpd['decode_bases'] / 1e6 / gpd['decode_s']:.1f} Mbases/s; windows, upload, "
-          f"precompute, kernel, download)")
+          f"({ent['windows']} windows) in {gpd['decode_s'] * 1e3:.2f} ms with the standard tables, "
+          f"{gpd['decode_self_s'] * 1e3:.2f} ms with genome 0's self-trained ones "
+          f"({gpd['decode_bases'] / 1e6 / gpd['decode_s']:.1f} Mbases/s; windows, upload, one fused "
+          f"launch, download); -t self with --device cpu {gpd['self_cpu_s']:.1f} s")
     if dev.type == "cuda":
+        for tag, ent in gpd["fused"].items():
+            print(f"  genepred_decode {tag} ({ent['windows']} windows x 8192, {ent['model']} tables): kernel "
+                  f"{ent['ms']:.4f} ms (device only {ent['device_ms']:.4f} ms; profiler {ent['profiler_ms']}), "
+                  f"plain composition {ent['plain_ms']:.1f} ms, bound {ent['bound_ms']:.4f} ms "
+                  f"({ent['bound_by']}; {ent['bytes']} bytes, {ent['ops']} ops, {ent['ctx_hits']} context "
+                  f"hits), serial chain {ent['chain_ms']:.4f} ms")
         for tag, ent in gpd["kernel"].items():
-            print(f"  viterbi {tag} ({ent['windows']} windows x 8192): kernel {ent['ms']:.3f} ms "
-                  f"(device only {ent['device_ms']} ms), plain {ent['plain_ms']:.1f} ms, bound "
+            print(f"  viterbi {tag} ({ent['windows']} windows x 8192): kernel {ent['ms']:.4f} ms "
+                  f"(device only {ent['device_ms']:.4f} ms), plain {ent['plain_ms']:.1f} ms, bound "
                   f"{ent['bound_ms']:.4f} ms ({ent['bound_by']}), serial chain {ent['chain_ms']:.4f} ms")
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in clock.items()))
     src = "gsearch_tpu_torch/csrc/hamming.cu"
@@ -3081,13 +3182,22 @@ def run(dev: torch.device, cfg: dict, root: str, card: str) -> dict:
                              ent["err"], ent, shape=[*cfg["k2p"], ent["lanes"]], form=ent.get("form"),
                              ms_query=ent.get("ms_query"), ms_row=ent.get("ms_row"),
                              main_path=[e for e in k2_sites if e["parts"] == parts]))
+    keys = ("windows", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "chain_ms")
+    fz = gpd["fused"]
+    kernels.append(entry("genepred_decode", "gsearch_tpu/models/genepred.py:838", max(e["err"] for e in fz.values()),
+                         fz["genome"], source="gsearch_tpu_torch/csrc/viterbi.cu",
+                         shape=[fz["genome"]["windows"], 8192], device_ms=fz["genome"].get("device_ms"),
+                         chain_ms=fz["genome"].get("chain_ms"),
+                         **{tag: {k: fz[tag].get(k) for k in keys + ("ctx_hits",)}
+                            for tag in ("dispatch", "genome_self", "dispatch_self")}))
     vit = gpd["kernel"]
+    # the memory-fed form: no longer on the main path (the fused one
+    # replaced it there); the tests' planted emissions go through it
     kernels.append(entry("viterbi", "gsearch_tpu/models/genepred.py:790", vit["genome"]["err"],
                          vit["genome"], source="gsearch_tpu_torch/csrc/viterbi.cu",
-                         shape=[vit["genome"]["windows"], 8192, 11],
+                         shape=[vit["genome"]["windows"], 8192, 11], on_main_path=False,
                          device_ms=vit["genome"].get("device_ms"), chain_ms=vit["genome"].get("chain_ms"),
-                         dispatch={k: vit["dispatch"].get(k) for k in (
-                             "windows", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "chain_ms")}))
+                         dispatch={k: vit["dispatch"].get(k) for k in keys}))
     return {"kernels": kernels}
 
 

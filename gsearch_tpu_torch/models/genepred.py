@@ -12,12 +12,15 @@ correction), so `predict_genes` returns the reference's genes.
 
 The host tables and model files are numpy, copied from the reference (a
 GeneModel `.npz` written by either package loads in the other).  The
-emission and bonus precompute is torch on the caller's device
-(`_precompute_scores`); the Viterbi decode is `ops/viterbi.viterbi`: the
-hand-written CUDA kernel for a CUDA tensor, the plain torch loop for a CPU
-one.  Contigs longer than 8,192 bases decode in overlapping windows, as
-the reference's do; every window of a contig goes to the kernel in one
-launch (the plain path takes 64 a call, as the reference dispatches).
+decode of a batch of windows is `_decode_windows`, the reference's one
+program from codes to path: on a CPU tensor the plain composition of the
+torch emission / bonus precompute (`_precompute_scores`) and the plain
+Viterbi loop (`ops/viterbi.viterbi_plain`); on a CUDA tensor one launch of
+the hand-written fused kernel (`ops/viterbi.genepred_decode`), which
+computes the emissions inside it.  Contigs longer than 8,192 bases decode
+in overlapping windows, as the reference's do; every window of a contig
+goes to the kernel in one launch (the plain path takes 64 a call, as the
+reference dispatches).
 """
 
 from __future__ import annotations
@@ -29,8 +32,9 @@ from typing import List
 import numpy as np
 import torch
 
-from ..ops.viterbi import (F1, F2, F3, FI1, FI2, NC, NEG_BIG as _NEG_BIG, NSTATE, R1, R2, R3,
-                           RI1, RI2, transition_table, viterbi)
+from ..ops.viterbi import (DECODE_TABLES, F1, F2, F3, FI1, FI2, NC, NEG_BIG as _NEG_BIG, NSTATE,
+                           R1, R2, R3, RI1, RI2, genepred_decode, transition_table,
+                           viterbi_plain)
 from ..io.codec import encode_dna
 from ..utils import get_logger
 
@@ -1030,12 +1034,34 @@ def _windows(codes: np.ndarray) -> tuple:
     return wins, spans
 
 
+def _decode_windows(codes: torch.Tensor, dp0: torch.Tensor, tb: torch.Tensor,
+                    **scores) -> torch.Tensor:
+    """codes [B, W] (uint8, 255 invalid) -> decoded state paths [B, W] int8
+    on codes' device: the reference's `_decode_windows`
+    (gsearch_tpu/models/genepred.py:838), emission / bonus precompute,
+    Viterbi scan and backtrace as one program.  `scores` are
+    `_precompute_scores`' keywords (numpy tables, bonus strengths and, for
+    a CUDA tensor, all three context scalars); dp0 [B, 11] and tb [11, 11]
+    f32 on the same device.  A CPU
+    tensor takes the plain composition, `_precompute_scores` then
+    `viterbi_plain`; a CUDA tensor one launch of the fused kernel, which
+    writes no emission or bonus to device memory."""
+    if codes.device.type == "cpu":
+        e, sb, pb, rbb, reb = _precompute_scores(codes, **scores)
+        return viterbi_plain(e, sb, pb, rbb, reb, dp0, tb)
+    tables = {k: None if scores.get(k) is None else _table(scores[k], codes.device)
+              for k in DECODE_TABLES}
+    scalars = ("start_codon_bonus", "stop_codon_bonus", "ctx_weight", "ctx_cap", "ctx_neg_cap")
+    return genepred_decode(codes, dp0, tb, **{k: scores[k] for k in scalars}, **tables)
+
+
 def _decode_path(codes: np.ndarray, p: GenePredParams, codon_lu,
                  dicodon_lu, nc_lm=None, ctx=None, ctx_aff=None,
                  rdicodon_lu=None, *, device: torch.device) -> np.ndarray:
     """Full-contig Viterbi state path [L] (int8) via overlapping windows,
-    decoded on `device`: on CUDA all windows in one kernel launch, on the
-    CPU _MAX_BATCH windows a call of the plain decoder.  Window 0 starts in
+    decoded on `device` by `_decode_windows`: on CUDA all windows in one
+    launch (only the u8 windows and the tables are uploaded), on the CPU
+    _MAX_BATCH windows a call of the plain composition.  Window 0 starts in
     NC (the true sequence start); interior windows start unconstrained."""
     log_indel = np.log(p.indel_rate) if p.allow_indels else _NEG_BIG
     tb = torch.as_tensor(transition_table(p.p_gene_start, log_indel), device=device)
@@ -1053,13 +1079,13 @@ def _decode_path(codes: np.ndarray, p: GenePredParams, codon_lu,
     step = len(wins) if device.type == "cuda" else _MAX_BATCH
     path = np.empty(len(codes), np.int8)
     for b0 in range(0, len(wins), step):
-        chunk = torch.from_numpy(wins[b0 : b0 + step]).to(device)
-        dp0 = torch.zeros((chunk.shape[0], NSTATE), dtype=torch.float32, device=device)
+        rows = wins[b0 : b0 + step]
+        dp0 = np.zeros((len(rows), NSTATE), np.float32)
         if b0 == 0:
             dp0[0] = _NEG_BIG
             dp0[0, NC] = 0.0
-        e, sb, pb, rbb, reb = _precompute_scores(chunk, **scores)
-        out = viterbi(e, sb, pb, rbb, reb, dp0, tb).cpu().numpy()
+        out = _decode_windows(torch.from_numpy(rows).to(device), torch.from_numpy(dp0).to(device),
+                              tb, **scores).cpu().numpy()
         for i, off, c0, clen in spans[b0 : b0 + step]:
             path[c0 : c0 + clen] = out[i - b0, off : off + clen]
     return path

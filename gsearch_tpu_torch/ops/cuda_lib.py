@@ -29,7 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 launches = {"hamming_frac": 0, "hamming_frac_self": 0, "gather_hamming": 0, "gather_hamming_p2": 0,
-            "gather_hamming_p4": 0, "gather_hamming_p8": 0, "int_mm": 0, "viterbi": 0}
+            "gather_hamming_p4": 0, "gather_hamming_p8": 0, "int_mm": 0, "viterbi": 0,
+            "genepred_decode": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -106,6 +107,9 @@ def bind(path: str) -> ctypes.CDLL:
     lib.gs_gather_hamming.restype = i
     lib.gs_viterbi.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, vp]
     lib.gs_viterbi.restype = i
+    f = ctypes.c_float
+    lib.gs_genepred_decode.argtypes = [vp] * 8 + [f] * 5 + [vp] * 4 + [i, i, i, vp]
+    lib.gs_genepred_decode.restype = i
     lib.gs_error_string.argtypes = [i]
     lib.gs_error_string.restype = ctypes.c_char_p
     return lib

@@ -518,11 +518,112 @@ def test_viterbi_wrapper_rejects_bad_inputs(cuda_device):
         tv.viterbi(e, *bon, dp0, tb.cpu())
 
 
+def _decode_tables(kind: str, rng) -> dict:
+    """Keyword tables of the fused decode for one table variant the CLI
+    decodes with (numpy, as `_decode_windows` takes them); "ctx" is a
+    FragGeneScan model's full set (context, calibration, noncoding, both
+    dicodon tables) plus a start prior."""
+    from gsearch_tpu_torch.models.genepred import GeneModel, default_codon_logusage
+    from torch_synth import write_fgs_train_dir
+    import tempfile
+
+    kw = {"codon_lu": default_codon_logusage(), "dicodon_lu": None}
+    if kind == "codon":
+        return kw
+    with tempfile.TemporaryDirectory() as tdir:
+        write_fgs_train_dir(tdir, rng)
+        model = GeneModel.from_fgs_train_dir(tdir)
+    nc, ctx, aff = model.ctx_for(model.cg_bins[0])
+    if kind in ("dicodon", "dicodon_rdi"):
+        kw["dicodon_lu"] = model.dicodon_logusage[0]
+    if kind == "dicodon_rdi":
+        kw["rdicodon_lu"] = model.rdicodon_logusage[0]
+    if kind == "nc_lm":
+        kw["nc_lm"] = nc
+    if kind == "start_prior":
+        kw["start_prior"] = rng.normal(0, 1, 64).astype(np.float32)
+    if kind == "ctx":
+        kw.update(codon_lu=model.codon_logusage[0], dicodon_lu=model.dicodon_logusage[0],
+                  rdicodon_lu=model.rdicodon_logusage[0], nc_lm=nc, ctx=ctx, ctx_aff=aff,
+                  start_prior=rng.normal(0, 1, 64).astype(np.float32))
+    return kw
+
+
+def _decode_windows_inputs(b, w, seed, device):
+    """Seeded windows of planted genomes with N runs and a 255 tail (row 1
+    ends in a stop codon, row 0 opens with "TA" + N), dp0 with row 0 in NC,
+    the transition table."""
+    from gsearch_tpu_torch.io.codec import encode_dna
+    from gsearch_tpu_torch.ops.viterbi import transition_table
+    from torch_synth import synth_genome
+
+    rng = np.random.default_rng(seed)
+    seq, _ = synth_genome(rng, max(b * w // 4, 4 * w) + w, n_runs=max(2, b // 8))
+    starts = rng.integers(0, len(seq) - w, b)
+    codes = encode_dna(np.stack([seq[s : s + w] for s in starts]))
+    codes[:, -100:] = 255
+    codes[0, :3] = [3, 0, 255]
+    if b > 1:
+        codes[1, -3:] = encode_dna(b"TAA")
+    dp0 = torch.zeros((b, 11))
+    dp0[0] = -1e9
+    dp0[0, 0] = 0.0
+    tb = torch.from_numpy(transition_table(1 / 400, -1e9))
+    return rng, torch.from_numpy(codes).to(device), dp0.to(device), tb.to(device)
+
+
+@pytest.mark.parametrize("kind", ["codon", "dicodon", "dicodon_rdi", "nc_lm", "start_prior", "ctx"])
+@pytest.mark.parametrize("b,w", [(1, 4096), (3, 4133), (64, 8192), (896, 8192)])
+def test_genepred_decode_kernel_matches_plain(cuda_device, b, w, kind):
+    """The fused decode (`gs_genepred_decode`, one launch from codes to
+    paths) bitwise equal to the plain composition on the same device,
+    `_precompute_scores` then `viterbi_plain` (held to gsearch_tpu's
+    `_decode_windows` by test_torch_genepred.py), for every table variant,
+    a context model among them."""
+    from gsearch_tpu_torch.models import genepred as gp
+    from gsearch_tpu_torch.ops import viterbi as tv
+
+    rng, codes, dp0, tb = _decode_windows_inputs(b, w, 70 + b, cuda_device)
+    kw = _decode_tables(kind, rng)
+    scal = dict(start_codon_bonus=3.0, stop_codon_bonus=9.0, ctx_weight=1.0, ctx_cap=8.0, ctx_neg_cap=6.0)
+    before = dict(cuda_lib.launches)
+    got = gp._decode_windows(codes, dp0, tb, **kw, **scal)
+    assert cuda_lib.launches["genepred_decode"] == before["genepred_decode"] + 1
+    assert cuda_lib.launches["viterbi"] == before["viterbi"]
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.shape == (b, w)
+    want = tv.viterbi_plain(*gp._precompute_scores(codes, **kw, **scal), dp0, tb)
+    assert torch.equal(got, want)
+
+
+def test_genepred_decode_rejects_bad_inputs(cuda_device):
+    """The launcher raises on a table on another device, a context table
+    without its calibration, non-contiguous or non-u8 codes; given good
+    inputs it agrees with the plain composition."""
+    from gsearch_tpu_torch.models.genepred import _precompute_scores, default_codon_logusage
+    from gsearch_tpu_torch.ops import viterbi as tv
+
+    _, codes, dp0, tb = _decode_windows_inputs(4, 256, 5, cuda_device)
+    codon = torch.as_tensor(default_codon_logusage(), device=cuda_device)
+    scal = dict(start_codon_bonus=3.0, stop_codon_bonus=9.0, ctx_weight=1.0, ctx_cap=8.0, ctx_neg_cap=6.0)
+    with pytest.raises(ValueError, match="codon_lu on cpu"):
+        tv.genepred_decode(codes, dp0, tb, codon_lu=codon.cpu(), **scal)
+    with pytest.raises(ValueError, match="ctx_aff"):
+        tv.genepred_decode(codes, dp0, tb, codon_lu=codon, ctx=torch.zeros((4, 61, 64), device=cuda_device),
+                           **scal)
+    with pytest.raises(ValueError, match="contiguous"):
+        tv.genepred_decode(codes.t().contiguous().t(), dp0, tb, codon_lu=codon, **scal)
+    with pytest.raises(ValueError, match="uint8"):
+        tv.genepred_decode(codes.to(torch.int32), dp0, tb, codon_lu=codon, **scal)
+    want = tv.viterbi_plain(*_precompute_scores(codes, default_codon_logusage(), None, 3.0, 9.0), dp0, tb)
+    assert torch.equal(tv.genepred_decode(codes, dp0, tb, codon_lu=codon, **scal), want)
+
+
 def test_genepred_on_card_matches_cpu(cuda_device, tmp_path):
     """The genepred CLI with self-training (context tables, a 2-round
     decode) and with the standard prior writes the same four files on the
-    card as on the CPU: the emission precompute gives the same bits and
-    the kernel the same paths."""
+    card as on the CPU: the fused decode gives the CPU composition's
+    paths, through `genepred_decode` launches only."""
     from gsearch_tpu_torch.cli.genepred import main
     from torch_synth import synth_genome
 
@@ -535,7 +636,11 @@ def test_genepred_on_card_matches_cpu(cuda_device, tmp_path):
     for train in ("standard", "self"):
         outs = {}
         for dev in ("cuda", "cpu"):
+            before = dict(cuda_lib.launches)
             assert main(["-s", str(fa), "-o", str(tmp_path / dev), "-t", train, "--device", dev]) == 0
+            if dev == "cuda":
+                assert cuda_lib.launches["genepred_decode"] > before["genepred_decode"]
+                assert cuda_lib.launches["viterbi"] == before["viterbi"]
             outs[dev] = [(tmp_path / (dev + ext)).read_bytes() for ext in (".faa", ".ffn", ".gff", ".out")]
         assert outs["cuda"] == outs["cpu"], train
         assert outs["cuda"][0].count(b">") > 50

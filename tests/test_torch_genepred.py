@@ -35,6 +35,10 @@ CPU = torch.device("cpu")
 #: seeded table sets of test_precompute_scores_with_context_within_tolerance;
 #: about 2.5x the larger
 CTX_RTOL = 5e-5
+#: decoded paths with context tables: the share of positions where the
+#: port's differ from the reference's (scores within CTX_RTOL can flip a
+#: near-tie); measured 0 on test_decode_windows_with_context's windows
+CTX_PATH_SHARE = 0.01
 
 
 def _bits(x) -> np.ndarray:
@@ -255,6 +259,130 @@ def test_viterbi_wrapper_checks_inputs():
         pv.viterbi(e.double(), *bon, torch.zeros((2, 11)), tb)
     with pytest.raises(ValueError):
         pv.viterbi(e, *bon[:3], torch.zeros((2, 7)), torch.zeros((2, 11)), tb)
+
+
+# ---- the decode of a batch of windows (_decode_windows) -----------------------
+
+def _wrap_windows(rng, b: int = 4, w: int = 2000) -> np.ndarray:
+    """Seeded windows with N runs and a 255 tail, and the reads torch.roll
+    wraps planted: row 1 ends in a stop codon (a stop hit at i = 0) and
+    row 2 in CAT, a reverse start (a rev-end hit and its prior at i = 0);
+    row 3 opens with "TA" then N (read as TAA: a stop hit at i = 3)."""
+    codes = _codes(rng, b, w)
+    codes[1, -3:] = P.encode_dna(b"TAA")
+    codes[2, -3:] = P.encode_dna(b"CAT")
+    codes[3, :3] = [3, 0, 255]
+    return codes
+
+
+def _ref_decode_windows(codes, kw, dp0, log_indel, sb=3.0, pb=9.0, ctx_weight=1.0, ctx_cap=8.0,
+                        ctx_neg_cap=6.0) -> np.ndarray:
+    """gsearch_tpu's `_decode_windows` (one jitted program a pattern of
+    absent tables), absent tables as zeros, as its `_decode_path` passes."""
+    f32 = jnp.float32
+    has = {k: kw.get(k) is not None for k in ("dicodon_lu", "nc_lm", "ctx", "start_prior", "rdicodon_lu")}
+    z = lambda k, shape: jnp.asarray(kw[k]) if has[k] else jnp.zeros(shape, f32)
+    aff = kw.get("ctx_aff")
+    aff = jnp.asarray(aff) if aff is not None else jnp.tile(jnp.asarray([1.0, 0.0], f32), (4, 1))
+    out = R._decode_windows(jnp.asarray(codes), jnp.asarray(kw["codon_lu"]), z("dicodon_lu", (64, 64)),
+                            f32(sb), f32(pb), f32(1 / 400), f32(log_indel), jnp.asarray(dp0),
+                            z("nc_lm", (4, 4)), z("ctx", (4, 61, 64)), aff, f32(ctx_weight), f32(ctx_cap),
+                            f32(ctx_neg_cap), z("start_prior", (64,)), z("rdicodon_lu", (64, 64)),
+                            has_di=has["dicodon_lu"], has_nc=has["nc_lm"], has_ctx=has["ctx"],
+                            has_prior=has["start_prior"], has_rdi=has["dicodon_lu"] and has["rdicodon_lu"])
+    return np.asarray(out)
+
+
+def _port_decode_windows(codes, kw, dp0, log_indel, sb=3.0, pb=9.0, ctx_weight=1.0, ctx_cap=8.0,
+                         ctx_neg_cap=6.0) -> np.ndarray:
+    tb = torch.from_numpy(pv.transition_table(1 / 400, log_indel))
+    return P._decode_windows(torch.from_numpy(codes), torch.from_numpy(dp0), tb, **kw,
+                             start_codon_bonus=sb, stop_codon_bonus=pb, ctx_weight=ctx_weight,
+                             ctx_cap=ctx_cap, ctx_neg_cap=ctx_neg_cap).numpy()
+
+
+def _dp0(form: str, b: int) -> np.ndarray:
+    dp0 = np.zeros((b, 11), np.float32)
+    if form == "nc_first":  # a contig's first window starts in NC, the others free
+        dp0[0] = R._NEG_BIG
+        dp0[0, R.NC] = 0.0
+    return dp0
+
+
+@pytest.mark.parametrize("dp0_form", ["nc_first", "zeros"])
+@pytest.mark.parametrize("kind", ["prior", "dicodon", "dicodon_rdi", "nc_lm", "start_prior", "indels"])
+def test_decode_windows_bit_equal(kind, dp0_form):
+    """The port's `_decode_windows` on the CPU (the plain composition the
+    fused kernel is held to on the card) against gsearch_tpu's one jitted
+    program, bit for bit: every table variant the CLI decodes with, both
+    dp0 forms, the wrapped reads at i = 0-2 and "TA" + N."""
+    rng = np.random.default_rng(40)
+    codes = _wrap_windows(rng)
+    kw = _tables("prior" if kind == "indels" else kind, rng)
+    log_indel = np.float32(np.log(0.01)) if kind == "indels" else np.float32(R._NEG_BIG)
+    dp0 = _dp0(dp0_form, len(codes))
+    ref = _ref_decode_windows(codes, kw, dp0, log_indel)
+    port = _port_decode_windows(codes, kw, dp0, log_indel)
+    assert port.dtype == np.int8 and port.shape == codes.shape
+    np.testing.assert_array_equal(port, ref)
+
+
+def test_decode_windows_wrap_cases_move_bonuses():
+    """The planted rows do reach the wrapped reads: their bonuses at i < 4
+    differ from the same rows with the wrap cut (the codes after them
+    made invalid)."""
+    rng = np.random.default_rng(40)
+    codes = _wrap_windows(rng)
+    kw = _tables("start_prior", rng)
+    cut = codes.copy()
+    cut[1:3, -3:] = 255
+    cut[3, 2] = 0                                # "TAA" without the N: the same stop
+    a, b = _port_scores(codes, kw), _port_scores(cut, kw)
+    stop, rev_end = 2, 4
+    assert a[stop][1, 0] != b[stop][1, 0]        # row 1: stop hit at i = 0 from the tail
+    assert a[rev_end][2, 0] != b[rev_end][2, 0]  # row 2: rev-end hit (and prior) at i = 0
+    assert a[stop][3, 3] == b[stop][3, 3] == np.float32(9.0)  # "TA" + N reads as TAA
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_decode_windows_with_context(tmp_path, calibrated):
+    """With a context model the port's bonuses stay within CTX_RTOL of the
+    reference's (test_precompute_scores_with_context_within_tolerance), and
+    its `_decode_windows` path differs from gsearch_tpu's at no more than
+    CTX_PATH_SHARE of the positions (none on this seed).  On the CPU the
+    port's `_decode_windows` is its plain composition itself; the card
+    test test_genepred_decode_kernel_matches_plain holds the fused kernel
+    to it bit for bit."""
+    rng = np.random.default_rng(41)
+    write_fgs_train_dir(str(tmp_path), rng)
+    model = R.GeneModel.from_fgs_train_dir(str(tmp_path))
+    nc, ctx, aff = model.ctx_for(model.cg_bins[1])
+    kw = {"codon_lu": model.codon_logusage[1], "dicodon_lu": model.dicodon_logusage[1],
+          "rdicodon_lu": model.rdicodon_logusage[1], "nc_lm": nc, "ctx": ctx,
+          "ctx_aff": aff if calibrated else np.tile(np.float32([1.0, 0.0]), (4, 1)),
+          "start_prior": rng.normal(0, 1, 64).astype(np.float32)}
+    codes = _wrap_windows(rng)
+    ref, port = _ref_scores(codes, kw), _port_scores(codes, kw)
+    np.testing.assert_array_equal(_bits(ref[0]), _bits(port[0]))
+    for a, c in zip(ref[1:], port[1:]):
+        assert float((np.abs(a - c) / np.maximum(np.abs(a), 1.0)).max()) <= CTX_RTOL
+    dp0 = _dp0("nc_first", len(codes))
+    got = _port_decode_windows(codes, kw, dp0, np.float32(R._NEG_BIG))
+    want = _ref_decode_windows(codes, kw, dp0, np.float32(R._NEG_BIG))
+    assert got.dtype == np.int8 and got.shape == codes.shape
+    assert float((got != want).mean()) <= CTX_PATH_SHARE
+
+
+def test_genepred_decode_launcher_checks_inputs():
+    """The fused kernel's launcher takes CUDA tensors only (the CPU's plain
+    composition is `_decode_windows`) and names an unknown table."""
+    codes = torch.zeros((2, 64), dtype=torch.uint8)
+    dp0, tb = torch.zeros((2, 11)), torch.zeros((11, 11))
+    scal = dict(start_codon_bonus=3.0, stop_codon_bonus=9.0, ctx_weight=1.0, ctx_cap=8.0, ctx_neg_cap=6.0)
+    with pytest.raises(ValueError, match="_decode_windows"):
+        pv.genepred_decode(codes, dp0, tb, codon_lu=torch.zeros(64), **scal)
+    with pytest.raises(TypeError, match="unknown tables"):
+        pv.genepred_decode(codes, dp0, tb, codon_lu=torch.zeros(64), dicodon=torch.zeros((64, 64)), **scal)
 
 
 def _decode_both(seq: bytes, params=None):
