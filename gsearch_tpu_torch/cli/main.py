@@ -6,7 +6,9 @@ ann / import / reformat, and the tools bindash / hypermash / superaai /
 superani / hnsw2knn / hnswcore / bigsig / hmmsearch / genepred, forwarded to their
 own parsers; plus `--device`
 (default cuda; asking for cuda without a card raises, the CPU is asked
-for with --device cpu) and `--mesh` (pipeline.py, parallel/mesh.py).  As in the
+for with --device cpu), `--mesh` (pipeline.py, parallel/mesh.py) and
+`--trace FILE` (tohnsw / add / request write the spans and counters of
+utils/trace.py as JSON to FILE).  As in the
 reference, add/request take no algorithm flags: everything is reloaded
 from the database's parameters.json.
 """
@@ -14,6 +16,7 @@ from the database's parameters.json.
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 
@@ -32,6 +35,9 @@ def _add_global(p: argparse.ArgumentParser, top: bool = False) -> None:
                         "reference's multiple_build/multiple_search scripts")
     p.add_argument("--device", default=default("cuda"),
                    help="torch device: cuda (default; raises without a card) or cpu")
+    p.add_argument("--trace", default=default(None), metavar="FILE",
+                   help="tohnsw / add / request: time the program's stages and write their "
+                        "spans and counters as JSON to FILE")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,6 +124,10 @@ TOOLS = {
 }
 
 
+# the subcommands --trace times
+TRACED = ("tohnsw", "add", "request")
+
+
 def _algo_name(name: str) -> str:
     return {"prob": "PROB3A"}.get(name.lower(), name.upper())
 
@@ -128,7 +138,10 @@ def main(argv=None) -> int:
         import importlib
 
         return importlib.import_module(TOOLS[argv[0]]).main(argv[1:])
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.trace is not None and args.command not in TRACED:
+        ap.error(f"--trace applies to {', '.join(TRACED)}")
 
     if args.command == "reformat":
         from .reformat import reformat_file
@@ -137,10 +150,24 @@ def main(argv=None) -> int:
         print(f"wrote {n} rows to {args.output_file}")
         return 0
 
-    from ..core import ComputingParams, HnswParams, ProcessingParams, SeqSketcherParams
-    from ..utils import resolve_device
+    from ..utils import resolve_device, trace
 
     device = resolve_device(args.device)
+    if args.trace is None:
+        return _run(args, device)
+    trace.enable()
+    try:
+        rc = _run(args, device)
+    finally:
+        trace.disable()
+    with open(args.trace, "w") as f:
+        json.dump(trace.snapshot(), f, indent=1, sort_keys=True)
+    return rc
+
+
+def _run(args, device) -> int:
+    from ..core import ComputingParams, HnswParams, ProcessingParams, SeqSketcherParams
+
     computing = ComputingParams(
         nb_files_par=args.pio, nb_threads=args.nbthreads, mesh_devices=args.mesh
     )

@@ -19,6 +19,7 @@ import torch
 
 from ..ops.distance import as_int32_rows, bucketed_knn
 from ..ops.mxu import MxuSearcher
+from ..utils import trace
 from .sigfile import load_sigs, save_sigs
 
 
@@ -53,18 +54,20 @@ class FlatIndex:
         """Batched k-NN: (distances [Q, k], ids [Q, k]); ef_search is
         accepted for interface parity and ignored (exact search)."""
         del ef_search
-        queries = queries.astype(self.sig_dtype, copy=False)
-        if self.nb_points == 0:
-            q = queries.shape[0]
-            return np.full((q, 0), np.inf, np.float32), np.zeros((q, 0), np.int32)
-        if self.device.type == "cuda" and self.nb_points >= self.MXU_MIN_POINTS:
-            if self._mxu is None:
-                self._device_sigs = None  # the searcher holds its own bits
-                self._mxu = MxuSearcher(self._sigs, self.device)
-            return self._mxu.search(queries, knbn)
-        if self._device_sigs is None:
-            self._device_sigs = as_int32_rows(self._sigs).to(self.device)
-        return bucketed_knn(as_int32_rows(queries).to(self.device), self._device_sigs, knbn)
+        trace.count("search.queries", queries.shape[0])
+        with trace.span("search"):
+            queries = queries.astype(self.sig_dtype, copy=False)
+            if self.nb_points == 0:
+                q = queries.shape[0]
+                return np.full((q, 0), np.inf, np.float32), np.zeros((q, 0), np.int32)
+            if self.device.type == "cuda" and self.nb_points >= self.MXU_MIN_POINTS:
+                if self._mxu is None:
+                    self._device_sigs = None  # the searcher holds its own bits
+                    self._mxu = MxuSearcher(self._sigs, self.device)
+                return self._mxu.search(queries, knbn)
+            if self._device_sigs is None:
+                self._device_sigs = as_int32_rows(self._sigs).to(self.device)
+            return bucketed_knn(as_int32_rows(queries).to(self.device), self._device_sigs, knbn)
 
     def get_sigs(self) -> np.ndarray:
         return self._sigs

@@ -54,7 +54,7 @@ from ..ops.distance import (as_int32_rows, bucketed_knn, gather_hamming, hamming
                             hamming_frac_self, sig_bits, topk_smallest)
 from ..ops.mxu import (MxuSearcher, _next_pow2, _round_up, pack_hash4, pack_hash8, pack_hash16,
                        planned_footprint)
-from ..utils import get_logger
+from ..utils import get_logger, trace
 from .sigfile import load_sigs, save_sigs
 
 log = get_logger(__name__)
@@ -1016,6 +1016,11 @@ class HnswIndex:
         """Batched k-NN: candidates on the signature prefix (coarse sweep on
         CUDA at scale, else entry tier + beam) -> rerank tier.  Returns
         (distances [Q, k], ids [Q, k])."""
+        trace.count("search.queries", queries.shape[0])
+        with trace.span("search"):
+            return self._search(queries, knbn, ef_search)
+
+    def _search(self, queries: np.ndarray, knbn: int, ef_search: int):
         n = self.nb_points
         nq = queries.shape[0]
         if n == 0:
@@ -1029,38 +1034,44 @@ class HnswIndex:
             return bucketed_knn(as_int32_rows(queries).to(self.device),
                                 as_int32_rows(self._sigs).to(self.device), knbn)
 
-        # one staging upload, pad rows all-ones bits as in the reference
-        qb = _next_pow2(nq, floor=8)
-        qbuf = np.full((qb, self.sketch_size), -1, np.int32)
-        qbuf[:nq] = sig_bits(queries)
+        dev = self.device
+        with trace.span("search.stage"):
+            # one staging upload, pad rows all-ones bits as in the reference
+            qb = _next_pow2(nq, floor=8)
+            qbuf = np.full((qb, self.sketch_size), -1, np.int32)
+            qbuf[:nq] = sig_bits(queries)
         tier_kind = self._rerank_tier()[0]
         need_host_rerank = self.search_prefix < self.sketch_size and tier_kind == "host"
         # packed4's hash noise can swap ranks near the k-th answer:
         # over-fetch and let the exact host re-score pick the true top-k
         fetch = min(max(32, knbn), n) if tier_kind == "packed4" else knbn
-        d, ids = self.search_device(self._to_dev(qbuf), fetch, ef_search,
-                                    rerank=not need_host_rerank)
-        if not need_host_rerank:
-            if tier_kind == "full":
+        with trace.span("search.upload", dev):
+            q_dev = self._to_dev(qbuf)
+        d, ids = self.search_device(q_dev, fetch, ef_search, rerank=not need_host_rerank)
+        if not need_host_rerank and tier_kind == "full":
+            with trace.span("search.download", dev):
                 return d.cpu().numpy()[:nq], ids.cpu().numpy()[:nq]
-            # the packed tiers' distances are hash-collision-inflated: the
-            # answers re-score exactly from the host signatures
+        with trace.span("search.download", dev):
             ids_h = ids.cpu().numpy()[:nq]
-            dx = self._host_distances(queries, ids_h)
-            sel = np.argsort(dx, axis=1, kind="stable")[:, :knbn]
-            return (np.take_along_axis(dx, sel, axis=1),
-                    np.take_along_axis(ids_h, sel, axis=1))
+        trace.count("search.rescore_rows", ids_h.size)
+        with trace.span("search.rescore"):
+            if not need_host_rerank:
+                # the packed tiers' distances are hash-collision-inflated: the
+                # answers re-score exactly from the host signatures
+                dx = self._host_distances(queries, ids_h)
+                sel = np.argsort(dx, axis=1, kind="stable")[:, :knbn]
+                return (np.take_along_axis(dx, sel, axis=1),
+                        np.take_along_axis(ids_h, sel, axis=1))
 
-        # host rerank: no device tier fits; candidates at prefix precision
-        ids_h = ids.cpu().numpy()[:nq]
-        d = self._host_distances(queries, ids_h)
-        sel = np.argpartition(d, knbn - 1, axis=1)[:, :knbn]
-        dsel = np.take_along_axis(d, sel, axis=1)
-        o = np.argsort(dsel, axis=1, kind="stable")
-        return (
-            np.take_along_axis(dsel, o, axis=1),
-            np.take_along_axis(np.take_along_axis(ids_h, sel, axis=1), o, axis=1),
-        )
+            # host rerank: no device tier fits; candidates at prefix precision
+            d = self._host_distances(queries, ids_h)
+            sel = np.argpartition(d, knbn - 1, axis=1)[:, :knbn]
+            dsel = np.take_along_axis(d, sel, axis=1)
+            o = np.argsort(dsel, axis=1, kind="stable")
+            return (
+                np.take_along_axis(dsel, o, axis=1),
+                np.take_along_axis(np.take_along_axis(ids_h, sel, axis=1), o, axis=1),
+            )
 
     def _host_distances(self, queries: np.ndarray, ids_h: np.ndarray) -> np.ndarray:
         """Exact distances of queries [Q, S] to the rows ids_h [Q, R] from
@@ -1125,32 +1136,35 @@ class HnswIndex:
                 # top-r, not bounded by ef; capped inside nb_cand=2048
                 r = min(_round_up(max(16 * knbn, 160), 8), nb, 1024)
             stats["route"] = "coarse"
-            dp, ids = coarse.search_device(q_p, knbn=knbn if no_rerank else r)
-            if not no_rerank and rerank:
-                # candidates in id order: the rerank's stable top-k then
-                # orders distance ties by id, as both flat routes do
-                ids, _ = torch.sort(ids, dim=1)
+            with trace.span("search.route.coarse", self.device):
+                dp, ids = coarse.search_device(q_p, knbn=knbn if no_rerank else r)
+                if not no_rerank and rerank:
+                    # candidates in id order: the rerank's stable top-k then
+                    # orders distance ties by id, as both flat routes do
+                    ids, _ = torch.sort(ids, dim=1)
         else:
             stats["route"] = "beam"
-            sigs_p, nbrs_p, entries = self._device_arrays()
-            dp, ids = _graph_search(sigs_p, nbrs_p, entries, q_p, n, ef=ef_round, r=r,
-                                    hops=hops, expand=expand, stats=stats)
+            with trace.span("search.route.beam", self.device):
+                sigs_p, nbrs_p, entries = self._device_arrays()
+                dp, ids = _graph_search(sigs_p, nbrs_p, entries, q_p, n, ef=ef_round, r=r,
+                                        hops=hops, expand=expand, stats=stats)
         if no_rerank or not rerank:
             return dp, ids
 
         kind, w = self._rerank_tier()
         stats["tier"] = kind
-        if kind == "full":
-            return _rerank_device(self._device_full_sigs(), q_dev, ids, n,
-                                  knbn=knbn, s_true=self.sketch_size)
-        if kind in ("packed", "packed8", "packed4"):
+        if kind not in ("full", "packed", "packed8", "packed4"):
+            raise ValueError("no device rerank tier fits; use search() (host rerank)")
+        with trace.span("search.rerank", self.device):
+            if kind == "full":
+                return _rerank_device(self._device_full_sigs(), q_dev, ids, n,
+                                      knbn=knbn, s_true=self.sketch_size)
             bits = {"packed": 16, "packed8": 8, "packed4": 4}[kind]
             wq = min(w, self.sketch_size)
             packed = self._device_packed_sigs(w, bits=bits)
             q_pk = _PACKERS[bits](q_dev[:, :wq], spad=w, pad_val=1)
             return _rerank_device(packed, q_pk, ids, n, knbn=knbn, s_true=wq,
                                   parts=32 // bits)
-        raise ValueError("no device rerank tier fits; use search() (host rerank)")
 
     # ------------------------------------------------------------------ io
 

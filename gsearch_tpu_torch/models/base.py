@@ -47,6 +47,7 @@ from ..ops.hash import mix32
 from ..ops.kmer import AA_BITS, canonical_dna_windows, kmer_windows
 from ..ops.race import (RaceResult, bucket_min, bucket_min_packed, bucket_min_packed_payload,
                         combine_race, sketch_fingerprint)
+from ..utils import trace
 
 _MIN_BLOCK_LOG2 = 14
 _MAX_BLOCK_LOG2 = 22
@@ -169,15 +170,20 @@ class SketcherBase:
         """One launch group's code rows [b, nb] -> their races on the
         sketcher's device; with a mesh, raced split over its members."""
         if self.mesh is None:
-            return self._race_rows(torch.from_numpy(arr).to(self.device))
+            with trace.span("sketch.upload", self.device):
+                codes = torch.from_numpy(arr).to(self.device)
+            with trace.span("sketch.race", self.device):
+                return self._race_rows(codes)
         devs = self.mesh.devices
         per = -(-arr.shape[0] // len(devs))
         padded = np.full((per * len(devs), arr.shape[1]), 255, dtype=np.uint8)
         padded[: arr.shape[0]] = arr
-        parts = [self._race_rows(torch.from_numpy(padded[j * per : (j + 1) * per]).to(dev))
-                 for j, dev in enumerate(devs)]
-        return RaceResult(*(torch.cat([p[f].to(self.device) for p in parts])[: arr.shape[0]]
-                            for f in range(3)))
+        # the members' uploads and races, timed on the sketcher's device
+        with trace.span("sketch.race", self.device):
+            parts = [self._race_rows(torch.from_numpy(padded[j * per : (j + 1) * per]).to(dev))
+                     for j, dev in enumerate(devs)]
+            return RaceResult(*(torch.cat([p[f].to(self.device) for p in parts])[: arr.shape[0]]
+                                for f in range(3)))
 
     def _pieces(self, codes) -> List[Tuple[np.ndarray, int]]:
         """The reference's row partition of one genome: [(codes, row length)]."""
@@ -218,14 +224,19 @@ class SketcherBase:
         kernels run asynchronously on the current stream, but each row
         group is uploaded from pageable host memory, a copy the host waits
         for: the call returns after the last upload, not at once."""
+        with trace.span("sketch.submit"):
+            return self._submit(codes_list)
+
+    def _submit(self, codes_list: Sequence) -> SketchTicket:
         ticket = SketchTicket(np.empty((len(codes_list), self.nb_slots), dtype=self.SIG_DTYPE))
         if not codes_list:
             return ticket
         rows: List[Tuple[np.ndarray, int]] = []
         first = []  # each genome's pieces are contiguous rows from here
-        for codes in codes_list:
-            first.append(len(rows))
-            rows.extend(self._pieces(codes))
+        with trace.span("sketch.pieces"):
+            for codes in codes_list:
+                first.append(len(rows))
+                rows.extend(self._pieces(codes))
 
         dev, s = self.device, self.nb_slots
         found = torch.empty((len(rows), s), dtype=torch.bool, device=dev)
@@ -234,35 +245,46 @@ class SketcherBase:
         by_len: dict = {}
         for r, (_, nb) in enumerate(rows):
             by_len.setdefault(nb, []).append(r)
+        groups = upload_bytes = 0
         for nb, rids in by_len.items():
             bcap = max(1, BATCH_ELEMS // nb)
             for start in range(0, len(rids), bcap):
                 chunk = rids[start : start + bcap]
-                arr = np.full((len(chunk), nb), 255, dtype=np.uint8)
-                for row, r in enumerate(chunk):
-                    piece = rows[r][0]
-                    arr[row, : len(piece)] = piece
+                with trace.span("sketch.fill"):
+                    arr = np.full((len(chunk), nb), 255, dtype=np.uint8)
+                    for row, r in enumerate(chunk):
+                        piece = rows[r][0]
+                        arr[row, : len(piece)] = piece
                 race = self._race_group(arr)
-                idx = torch.tensor(chunk, dtype=torch.int64, device=dev)
+                with trace.span("sketch.upload", dev):
+                    idx = torch.tensor(chunk, dtype=torch.int64, device=dev)
                 found[idx], key[idx], payload[idx] = race
+                groups += 1
+                upload_bytes += arr.nbytes + 8 * len(chunk)
 
-        # merge each genome's pieces in order (the reference's segment reduce)
-        counts = np.diff(np.array(first + [len(rows)]))
-        first_t = torch.tensor(first, dtype=torch.int64, device=dev)
-        acc = RaceResult(found[first_t], key[first_t], payload[first_t])
-        for j in range(1, int(counts.max())):
-            g = torch.from_numpy(np.nonzero(counts > j)[0]).to(dev)
-            r = first_t[g] + j
-            merged = combine_race(RaceResult(acc.found[g], acc.key[g], acc.payload[g]),
-                                  RaceResult(found[r], key[r], payload[r]))
-            acc.found[g], acc.key[g], acc.payload[g] = merged
-        ticket.sigs = _host_form(self._finalize_race(acc), np.dtype(self.SIG_DTYPE))
+        with trace.span("sketch.merge", dev):
+            # merge each genome's pieces in order (the reference's segment reduce)
+            counts = np.diff(np.array(first + [len(rows)]))
+            first_t = torch.tensor(first, dtype=torch.int64, device=dev)
+            acc = RaceResult(found[first_t], key[first_t], payload[first_t])
+            for j in range(1, int(counts.max())):
+                g = torch.from_numpy(np.nonzero(counts > j)[0]).to(dev)
+                r = first_t[g] + j
+                merged = combine_race(RaceResult(acc.found[g], acc.key[g], acc.payload[g]),
+                                      RaceResult(found[r], key[r], payload[r]))
+                acc.found[g], acc.key[g], acc.payload[g] = merged
+            ticket.sigs = _host_form(self._finalize_race(acc), np.dtype(self.SIG_DTYPE))
+        trace.count("sketch.genomes", len(codes_list))
+        trace.count("sketch.rows", len(rows))
+        trace.count("sketch.groups", groups)
+        trace.count("sketch.upload_bytes", upload_bytes)
         return ticket
 
     def sketch_finish(self, ticket: SketchTicket) -> np.ndarray:
         """Copy the ticket's signatures to the host (once)."""
         if ticket.sigs is not None:
-            ticket.out[:] = ticket.sigs.cpu().numpy().view(ticket.out.dtype)
+            with trace.span("sketch.finish", self.device):
+                ticket.out[:] = ticket.sigs.cpu().numpy().view(ticket.out.dtype)
             ticket.sigs = None
         return ticket.out
 

@@ -34,6 +34,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import cuda_lib
 from .distance import _as_i32, _distance, as_int32_rows, gather_hamming, topk_smallest
 from .hash import M32, as_u32, mix32
@@ -183,16 +184,19 @@ class MxuSearcher:
     def _top_scores(self, q: torch.Tensor, k: int):
         """Top-k rows by sign-dot score, as top_k orders them: (ids int64,
         scores int64), score descending, ties by lower id."""
-        rows = q.shape[0]
+        rows, dev = q.shape[0], self.device
         qp = max(32, _round_up(rows, 8))  # _int_mm on CUDA needs more than 16 rows
-        q_exp = torch.zeros((qp, self._k), dtype=torch.int8, device=self.device)
-        q_exp[:rows, : self.m * self.s] = expand_signs(q, self.m)
-        scores = torch._int_mm(q_exp, self._db_exp.t())[:rows, : self.n]
+        with trace.span("search.expand", dev):
+            q_exp = torch.zeros((qp, self._k), dtype=torch.int8, device=dev)
+            q_exp[:rows, : self.m * self.s] = expand_signs(q, self.m)
+        with trace.span("search.int_mm", dev):
+            scores = torch._int_mm(q_exp, self._db_exp.t())[:rows, : self.n]
         cuda_lib.launches["int_mm"] += 1
-        # (score desc, id asc) as one distinct int64 key: |score| <= m*S
-        ids = torch.arange(self.n, dtype=torch.int64, device=self.device)
-        key = scores.to(torch.int64) * (1 << 32) + (M32 - ids)
-        top = torch.topk(key, k, dim=1, sorted=True)
+        with trace.span("search.select", dev):
+            # (score desc, id asc) as one distinct int64 key: |score| <= m*S
+            ids = torch.arange(self.n, dtype=torch.int64, device=dev)
+            key = scores.to(torch.int64) * (1 << 32) + (M32 - ids)
+            top = torch.topk(key, k, dim=1, sorted=True)
         return top.indices, top.values >> 32
 
     def _nb_cand(self, knbn: int) -> int:
@@ -211,41 +215,54 @@ class MxuSearcher:
         the chunks are reranked by one K2 launch and one top-k over the
         batch, up to _RERANK_ELEMS candidate ids a launch (each query's
         distances and top-k are independent of the chunking)."""
-        q = _as_i32(q, "MxuSearcher.search")
-        knbn = min(knbn, self.n)
-        chunk = max(32, _SCORE_ELEMS // _round_up(self.n, 8))
-        dists = [torch.empty((0, knbn), dtype=torch.float32, device=self.device)]
-        ids = [torch.empty((0, knbn), dtype=torch.int32, device=self.device)]
-        if self.estimator_only:
-            for start in range(0, q.shape[0], chunk):
-                # the pool itself: top-k by score, estimated distances
-                top, score = self._top_scores(q[start : start + chunk], knbn)
-                dists.append(_distance(score, self.m * self.s))
-                ids.append(top.to(torch.int32))
+        with trace.span("search.device", self.device):
+            q = _as_i32(q, "MxuSearcher.search")
+            knbn = min(knbn, self.n)
+            chunk = max(32, _SCORE_ELEMS // _round_up(self.n, 8))
+            dev = self.device
+            dists = [torch.empty((0, knbn), dtype=torch.float32, device=dev)]
+            ids = [torch.empty((0, knbn), dtype=torch.int32, device=dev)]
+            if self.estimator_only:
+                for start in range(0, q.shape[0], chunk):
+                    # the pool itself: top-k by score, estimated distances
+                    top, score = self._top_scores(q[start : start + chunk], knbn)
+                    with trace.span("search.final", dev):
+                        dists.append(_distance(score, self.m * self.s))
+                        ids.append(top.to(torch.int32))
+                return torch.cat(dists), torch.cat(ids)
+            nb_cand = self._nb_cand(knbn)
+            batch = max(chunk, _RERANK_ELEMS // nb_cand // chunk * chunk)
+            for b0 in range(0, q.shape[0], batch):
+                qb = q[b0 : b0 + batch]
+                # candidates in id order, so the stable top-k breaks distance
+                # ties by lower id exactly as the exact sweep (bucketed_knn) does
+                tops = []
+                for start in range(0, qb.shape[0], chunk):
+                    top = self._top_scores(qb[start : start + chunk], nb_cand)[0]
+                    with trace.span("search.select", dev):
+                        tops.append(torch.sort(top, dim=1)[0])
+                cand = torch.cat(tops).to(torch.int32)
+                trace.count("search.candidates", qb.shape[0] * nb_cand)
+                with trace.span("search.rerank", dev):
+                    if self.compact:
+                        d = gather_hamming(self._rr, pack_hash16(qb, spad=self._spad, pad_val=1),
+                                           cand, parts=2, s_true=self.s)
+                    else:
+                        d = gather_hamming(self._rr, qb, cand)
+                with trace.span("search.final", dev):
+                    dist, sel = topk_smallest(d, knbn)
+                    dists.append(dist)
+                    ids.append(cand.gather(1, sel))
             return torch.cat(dists), torch.cat(ids)
-        nb_cand = self._nb_cand(knbn)
-        batch = max(chunk, _RERANK_ELEMS // nb_cand // chunk * chunk)
-        for b0 in range(0, q.shape[0], batch):
-            qb = q[b0 : b0 + batch]
-            # candidates in id order, so the stable top-k breaks distance
-            # ties by lower id exactly as the exact sweep (bucketed_knn) does
-            cand = torch.cat([torch.sort(self._top_scores(qb[start : start + chunk], nb_cand)[0],
-                                         dim=1)[0] for start in range(0, qb.shape[0], chunk)])
-            cand = cand.to(torch.int32)
-            if self.compact:
-                d = gather_hamming(self._rr, pack_hash16(qb, spad=self._spad, pad_val=1),
-                                   cand, parts=2, s_true=self.s)
-            else:
-                d = gather_hamming(self._rr, qb, cand)
-            dist, sel = topk_smallest(d, knbn)
-            dists.append(dist)
-            ids.append(cand.gather(1, sel))
-        return torch.cat(dists), torch.cat(ids)
 
     def search(self, queries, knbn: int) -> Tuple[np.ndarray, np.ndarray]:
         """queries [Q, S] (numpy, or a tensor on the device) -> numpy
         (distances [Q, k], ids [Q, k])."""
         if isinstance(queries, np.ndarray):
-            queries = as_int32_rows(queries).to(self.device)
+            with trace.span("search.stage"):
+                queries = as_int32_rows(queries)
+            with trace.span("search.upload", self.device):
+                queries = queries.to(self.device)
         d, ids = self.search_device(queries, knbn)
-        return d.cpu().numpy(), ids.cpu().numpy()
+        with trace.span("search.download", self.device):
+            return d.cpu().numpy(), ids.cpu().numpy()

@@ -39,7 +39,7 @@ from .io.fasta import concat_file_codes_packed, file_records_codes, read_file_by
 from .io.walk import bounded_thread_map, iter_file_buffers, walk_fasta_dir
 from .models import make_sketcher
 from .results import Matcher, Neighbour, ReqAnswer
-from .utils import StageTimer, get_logger
+from .utils import StageTimer, get_logger, trace
 
 log = get_logger(__name__)
 
@@ -140,6 +140,7 @@ def _sketch_dir(
             return
         with timer.stage("sketch"):
             tickets.append(sketcher.sketch_submit(buf_codes))
+        trace.count("ingest.bases", buf_bases)
         buf_codes = []
         buf_bases = 0
 
@@ -158,7 +159,8 @@ def _sketch_dir(
     prod.start()
     filerank = 0
     while True:
-        item = q.get()
+        with trace.span("ingest.queue_wait"):
+            item = q.get()
         if item is _END:
             break
         if isinstance(item, BaseException):
