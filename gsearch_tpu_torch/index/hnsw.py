@@ -50,6 +50,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..ops import host_rescore
 from ..ops.distance import (as_int32_rows, bucketed_knn, gather_hamming, hamming_frac,
                             hamming_frac_self, sig_bits, topk_smallest)
 from ..ops.mxu import (MxuSearcher, _next_pow2, _round_up, pack_hash4, pack_hash8, pack_hash16,
@@ -1075,10 +1076,15 @@ class HnswIndex:
 
     def _host_distances(self, queries: np.ndarray, ids_h: np.ndarray) -> np.ndarray:
         """Exact distances of queries [Q, S] to the rows ids_h [Q, R] from
-        the host signatures (the reference's numpy form), +inf past n."""
+        the host signatures, +inf past n: the equal-slot counts from the
+        native gather-and-count (`ops/host_rescore.py`), or where it is not
+        built the reference's numpy form; the same counts either way."""
         n = self.nb_points
-        rows = sig_bits(self._sigs[np.clip(ids_h, 0, n - 1)])  # [Q, R, S] bits, u16 widened
-        eq = (rows == sig_bits(queries)[:, None, :]).sum(-1)
+        eq = host_rescore.eq_counts(self._sigs, queries, ids_h)
+        trace.count("search.rescore_native_rows", 0 if eq is None else ids_h.size)
+        if eq is None:
+            rows = sig_bits(self._sigs[np.clip(ids_h, 0, n - 1)])  # [Q, R, S] bits, u16 widened
+            eq = (rows == sig_bits(queries)[:, None, :]).sum(-1)
         d = (1.0 - eq / np.float32(self.sketch_size)).astype(np.float32)
         d[ids_h >= n] = np.inf
         return d

@@ -1,6 +1,7 @@
 """gsearch_tpu_torch's graph index against gsearch_tpu on the CPU: the four
-device rerank tiers over a graph the reference built and carried across
-with `HnswIndex.from_jax`, and the bulk build and bulk append.
+device rerank tiers and the host rerank route over a graph the reference
+built and carried across with `HnswIndex.from_jax`, with the host re-score
+native and on its numpy fallback, and the bulk build and bulk append.
 
 Tiers are forced by lowering `_RERANK_DEVICE_BYTES` in both packages, as
 tests/test_index.py does.  Ids must be equal and distances within 2^-23
@@ -17,13 +18,15 @@ import torch
 import gsearch_tpu.index.hnsw as jhnsw
 import gsearch_tpu_torch.index.hnsw as thnsw
 from gsearch_tpu_torch.ops import distance as tdist
+from gsearch_tpu_torch.ops import host_rescore
 from test_torch_hnsw import CPU, ULP, sig_cloud
 
 S_TIERS = 6144  # one sketch size at which all four tiers can be chosen
 NBP1 = 4096 + 1  # next_pow2(n) + 1 for the fixture's n
 # per-row byte budgets (x NBP1) that leave exactly one tier:
-#   full needs 4 * 6144; packed 2 * 6144 of 0.7 * budget; packed8 8192; packed4 4096
-_BUDGETS = {"full": None, "packed": 20000, "packed8": 15000, "packed4": 8000}
+#   full needs 4 * 6144; packed 2 * 6144 of 0.7 * budget; packed8 8192; packed4 4096;
+#   below that the host rerank route
+_BUDGETS = {"full": None, "packed": 20000, "packed8": 15000, "packed4": 8000, "host": 4000}
 
 
 @pytest.fixture(scope="module")
@@ -37,8 +40,13 @@ def carried():
     return ref, thnsw.HnswIndex.from_jax(ref, device=CPU), sigs[n:]
 
 
-@pytest.mark.parametrize("tier", ["full", "packed", "packed8", "packed4"])
-def test_tier_search_matches_reference(carried, monkeypatch, tier):
+@pytest.mark.parametrize("tier,fallback", [
+    *(pytest.param(t, False, id=t) for t in _BUDGETS),
+    *(pytest.param(t, True, id=f"{t}-fallback") for t in ("packed8", "packed4", "host"))])
+def test_tier_search_matches_reference(carried, monkeypatch, tier, fallback):
+    """The fallback cases count the host re-score in numpy (the native
+    library made unloadable) and must give the native run's distances bit
+    for bit."""
     ref, got, q = carried
     if _BUDGETS[tier] is not None:
         monkeypatch.setattr(jhnsw, "_RERANK_DEVICE_BYTES", _BUDGETS[tier] * NBP1)
@@ -47,14 +55,20 @@ def test_tier_search_matches_reference(carried, monkeypatch, tier):
     assert got._rerank_tier()[0] == tier
     d_ref, i_ref = ref.search(q, knbn=10, ef_search=96)
     d, i = got.search(q, knbn=10, ef_search=96)
-    assert got.stats["search"] == {"route": "beam", "hops": got.stats["search"]["hops"],
-                                   "tier": tier}
-    if tier != "full":
+    want = {"route": "beam", "hops": got.stats["search"]["hops"]}
+    assert got.stats["search"] == (want if tier == "host" else {**want, "tier": tier})
+    if tier not in ("full", "host"):
         w, bits, buf = got._device_packed
         assert 32 // bits == {"packed": 2, "packed8": 4, "packed4": 8}[tier]
         assert buf.shape == (got.nb_points, w * bits // 32)
     np.testing.assert_array_equal(i, i_ref)
     np.testing.assert_allclose(d, d_ref, rtol=0, atol=ULP)
+    if fallback:
+        assert host_rescore.get_lib() is not None
+        monkeypatch.setattr(host_rescore, "get_lib", lambda: None)
+        d_np, i_np = got.search(q, knbn=10, ef_search=96)
+        np.testing.assert_array_equal(i_np, i_ref)
+        np.testing.assert_array_equal(d_np.view(np.uint32), d.view(np.uint32))
 
 
 def _tie_aware(got_d, true_d, k):

@@ -17,6 +17,7 @@ import gsearch_tpu_torch.index.hnsw as thnsw
 from gsearch_tpu_torch.cli.main import main as torch_main
 from gsearch_tpu_torch.core import ComputingParams, ProcessingParams
 from gsearch_tpu_torch.core.params import HnswParams, SeqSketcherParams
+from gsearch_tpu_torch.ops import host_rescore
 from gsearch_tpu_torch.ops import mxu as tmxu
 from gsearch_tpu_torch.pipeline import build_database
 from gsearch_tpu_torch.utils import StageTimer, trace
@@ -103,18 +104,26 @@ def test_mxu_search_spans_under_the_profiler(rng):
     assert {"gs:" + n for n in SEARCH_STAGES} <= names
 
 
-def test_graph_rescore_counts_fetched_rows(monkeypatch):
-    """packed4 over-fetches max(32, k) rows a query and re-scores them on
-    the host."""
-    monkeypatch.setattr(thnsw, "_RERANK_DEVICE_BYTES", 8000 * (4096 + 1))
+@pytest.fixture(scope="module")
+def packed4_graph():
+    """A graph whose search takes the packed4 tier (once the budget is
+    lowered) and its queries."""
     rng = np.random.default_rng(7)
     n, s = 2100, 6144
     sigs = _clustered(rng, n + 6, s)
     idx = thnsw.HnswIndex(s, np.uint32, max_nb_conn=8, ef_construction=64, search_prefix=64,
                           device=CPU)
     idx.insert(sigs[:n], bulk=False)
+    return idx, sigs[n:]
+
+
+def test_graph_rescore_counts_fetched_rows(monkeypatch, packed4_graph):
+    """packed4 over-fetches max(32, k) rows a query and re-scores them on
+    the host."""
+    monkeypatch.setattr(thnsw, "_RERANK_DEVICE_BYTES", 8000 * (4096 + 1))
+    idx, q = packed4_graph
     assert idx._rerank_tier()[0] == "packed4"
-    q, k = sigs[n:], 5
+    k = 5
     with profile(activities=[ProfilerActivity.CPU]):
         d, ids = idx.search(q, k, 64)
     snap = trace.snapshot()
@@ -124,6 +133,24 @@ def test_graph_rescore_counts_fetched_rows(monkeypatch):
         assert snap["spans"][name]["calls"] == 1, name
     assert snap["counters"]["search.queries"] == q.shape[0]
     assert snap["counters"]["search.rescore_rows"] == q.shape[0] * 32
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "fallback"])
+def test_graph_rescore_counts_native_rows(monkeypatch, packed4_graph, native):
+    """search.rescore_native_rows counts the rows the native library
+    re-scored: all of search.rescore_rows with it loaded, 0 on the numpy
+    fallback."""
+    monkeypatch.setattr(thnsw, "_RERANK_DEVICE_BYTES", 8000 * (4096 + 1))
+    if native:
+        assert host_rescore.get_lib() is not None
+    else:
+        monkeypatch.setattr(host_rescore, "get_lib", lambda: None)
+    idx, q = packed4_graph
+    trace.enable()
+    idx.search(q, 5, 64)
+    counters = trace.snapshot()["counters"]
+    assert counters["search.rescore_rows"] == q.shape[0] * 32
+    assert counters["search.rescore_native_rows"] == (counters["search.rescore_rows"] if native else 0)
 
 
 def test_build_database_spans_from_threads(tmp_path):
