@@ -21,7 +21,8 @@ answers sampled and judged as a run judges them:
 - `drop_half` (a fault, run last): the candidate stage loses every odd
   row (its sign expansion zeroed), so the rerank sees a wrong candidate
   list and still reports exact distances for it.
-Ingest cells: the plain sketcher's signatures carried in bfloat16.
+Ingest cells: the plain reference sketcher's signatures through its
+`control` (the OptDens reference's: carried in bfloat16).
 
 Prints one JSON line a seed and variant: the numbers, and which limits
 they break.  Exits 0 where every sound run is correct and every control
@@ -39,8 +40,8 @@ import tempfile
 import numpy as np
 import torch
 
-from . import drivers, gen, judge, run
-from .reference import knn, sketch
+from . import drivers, judge, run
+from .reference import knn
 
 # a device budget under which the graph index's rule picks packed4 at
 # 318,000 x 12,000 (packed8 needs 0.7 x budget >= 524,289 x 12,288 bytes)
@@ -134,12 +135,15 @@ def search_variants(files, seed: int, device, seconds: float, names) -> list:
 
 
 def ingest_control(cfg: dict, traffic: dict, seed: int, device) -> dict:
+    """The cell's corpus, sketched by its plain reference, against the
+    reference's own control of those signatures."""
+    corpus, ref = drivers.ingest_parts(cfg, traffic)
     with tempfile.TemporaryDirectory(prefix="portbench-control-") as tmp:
-        corpus = gen.genome_corpus(tmp, drivers.corpus_spec(cfg, traffic), seed)
-        files = sorted(corpus["files"])[: traffic["check_genomes"]]
-        ref = np.stack([sketch.sketch(sketch.read_genome(f), k=cfg["kmer_size"], s=cfg["sketch_size"],
-                                      device=device) for f in files])
-    return judge.sketch_numbers(ref, [(sketch.round_bf16(ref), len(files))], len(files))
+        files = sorted(corpus.write(tmp, drivers.corpus_spec(cfg, traffic), seed)["files"])
+        files = files[: traffic["check_genomes"]]
+        sigs = np.stack([ref.sketch(ref.read_genome(f), k=cfg["kmer_size"], s=cfg["sketch_size"],
+                                    device=device) for f in files])
+    return judge.sketch_numbers(sigs, [(ref.control(sigs), len(files))], len(files))
 
 
 def main(argv=None) -> int:
@@ -153,7 +157,7 @@ def main(argv=None) -> int:
     as_expected = True
     for seed in (int(s) for s in args.seeds.split(",")):
         if files.traffic["kind"] == "ingest":
-            results = [("bf16", ingest_control(files.cfg, files.traffic, seed, device), False)]
+            results = [("control", ingest_control(files.cfg, files.traffic, seed, device), False)]
         else:
             results = [(n, nums, SEARCH_VARIANTS[n][1]) for n, nums in
                        search_variants(files, seed, device, args.seconds, list(SEARCH_VARIANTS))]

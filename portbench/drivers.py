@@ -2,6 +2,10 @@
 closed loop) and `ingest` (whole database builds from FASTA).  A traffic
 file names its kind; the configuration says what the database is.
 
+An ingest cell's corpus writer and plain reference sketcher are found by
+name (`ingest_parts`), so a configuration with other symbols or another
+sketcher comes as new files.
+
 A driver's life: `setup()` draws the inputs from the seed, builds what the
 program needs and warms up every shape the window uses; `window()` runs
 the timed loop and keeps every answer; `check()` frees the program's state
@@ -23,8 +27,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from . import gen, judge
-from .reference import knn, sketch
+from . import gen, judge, run
+from .reference import knn
 
 # the request's answer filter (gsearch's dnarequest.rs:83): answers at or
 # beyond this distance are not written, so they are not judged as misses
@@ -172,6 +176,28 @@ def corpus_spec(cfg: dict, traffic: dict) -> dict:
     return dict(traffic, genomes=cfg["genomes"])
 
 
+def ingest_parts(cfg: dict, traffic: dict) -> tuple:
+    """(corpus, reference): the corpus writer the traffic names (`corpus`,
+    default `genomes`; `corpora/<name>.py`) and the plain reference
+    sketcher the configuration names (`reference`, default `sketch`;
+    `reference/<name>.py`).  Raises ValueError where the reference does
+    not sketch the configuration's `algo` or `data`, or the corpus does
+    not write its `data`: such a cell could only fail every slot."""
+    c_name, r_name = traffic.get("corpus", "genomes"), cfg.get("reference", "sketch")
+    corpus, ref = run.part("corpora", c_name), run.part("reference", r_name)
+    where = f"configuration {cfg.get('name')!r}"
+    if cfg["algo"] != ref.ALGO:
+        raise ValueError(f"{where} asks for algo {cfg['algo']!r}; its reference {r_name!r} sketches "
+                         f"algo {ref.ALGO!r}")
+    if cfg["data"] not in ref.DATA:
+        raise ValueError(f"{where} asks for data {cfg['data']!r}; its reference {r_name!r} takes data "
+                         f"{', '.join(map(repr, ref.DATA))}")
+    if corpus.DATA != cfg["data"]:
+        raise ValueError(f"{where} asks for data {cfg['data']!r}; its corpus {c_name!r} writes data "
+                         f"{corpus.DATA!r}")
+    return corpus, ref
+
+
 class IngestCell:
     kind = "ingest"
 
@@ -202,10 +228,11 @@ class IngestCell:
     def setup(self) -> None:
         from gsearch_tpu_torch.io import native
 
+        corpus, self.ref = ingest_parts(self.cfg, self.traffic)
         self.tmp = tempfile.mkdtemp(prefix="portbench-ingest-")
         self.genomes = os.path.join(self.tmp, "genomes")
         t0 = time.perf_counter()
-        self.corpus = gen.genome_corpus(self.genomes, corpus_spec(self.cfg, self.traffic), self.seed)
+        self.corpus = corpus.write(self.genomes, corpus_spec(self.cfg, self.traffic), self.seed)
         t1 = time.perf_counter()
         self.params = self._params()
         warm = os.path.join(self.tmp, "warm")
@@ -217,7 +244,7 @@ class IngestCell:
                           f"{t2 - t1:.3f} s; FASTA parser: {native.parser()}")
 
     def window(self, seconds: float, tracer=None) -> SimpleNamespace:
-        passes, stages, failed = [], {}, 0
+        passes, stages, failed, ends = [], {}, 0, []
         t_start = time.perf_counter()
         deadline = t_start + seconds
         while True:
@@ -235,9 +262,10 @@ class IngestCell:
                 failed += 1
             t1 = time.perf_counter()
             passes.append(out)
+            ends.append(t1 - t_start)
             if t1 >= deadline:
                 break
-        self.passes = passes
+        self.passes, self.walls = passes, np.diff([0.0] + ends)
         done = len(passes) - failed
         return SimpleNamespace(kind=self.kind, window_s=t1 - t_start, attempted=len(passes),
                                failed=failed, bases=done * self.corpus["bases"], stages=stages,
@@ -245,13 +273,14 @@ class IngestCell:
 
     def check(self) -> dict:
         """Every pass's signatures of a seeded sample of genomes against the
-        plain sketcher's."""
-        t, cfg = self.traffic, self.cfg
+        plain reference sketcher's."""
+        t, cfg, ref = self.traffic, self.cfg, self.ref
+        self.lines.append("window: pass walls s " + " ".join(f"{w:.3f}" for w in self.walls))
         files = sorted(self.corpus["files"])
         rng = np.random.default_rng([self.seed, 0x1D6E57])
         pick = np.sort(rng.choice(len(files), size=min(t["check_genomes"], len(files)), replace=False))
-        ref = np.stack([sketch.sketch(sketch.read_genome(files[i]), k=cfg["kmer_size"],
-                                      s=cfg["sketch_size"], device=self.device) for i in pick])
+        want = np.stack([ref.sketch(ref.read_genome(files[i]), k=cfg["kmer_size"],
+                                    s=cfg["sketch_size"], device=self.device) for i in pick])
         got = []
         for out in self.passes:
             try:
@@ -262,7 +291,7 @@ class IngestCell:
             except (OSError, KeyError, ValueError):
                 got.append(None)
         shutil.rmtree(self.tmp, ignore_errors=True)
-        return judge.sketch_numbers(ref, got, len(files))
+        return judge.sketch_numbers(want, got, len(files))
 
 
 DRIVERS = {"search": SearchCell, "ingest": IngestCell}

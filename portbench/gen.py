@@ -1,7 +1,8 @@
-"""Seeded inputs of the cells: databases of signatures, query pools and
-genome corpora.  Everything is drawn from `--seed`; signatures on the
-device with one torch.Generator, in chunks, in a fixed order, so a seed
-gives the same rows whatever the device's memory.
+"""Seeded inputs of the search cells: databases of signatures and query
+pools (an ingest cell's genomes are written by its corpus, `corpora/`).
+Everything is drawn from `--seed`; signatures on the device with one
+torch.Generator, in chunks, in a fixed order, so a seed gives the same
+rows whatever the device's memory.
 
 Signatures are f32 slot values in [0, 1) with 24-bit steps, as an OptDens
 signature is; two independent slots are equal with probability 2^-24, so a
@@ -9,10 +10,6 @@ pair's distance is set by the slots it shares by construction.
 """
 
 from __future__ import annotations
-
-import gzip
-import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -99,64 +96,3 @@ def query_pool(db: np.ndarray, count: int, redraw: tuple, gen: torch.Generator, 
         rows = torch.from_numpy(db[src[q0 : q0 + 1024]]).to(device)
         out[q0 : q0 + len(rows)] = _redrawn(rows, frac[q0 : q0 + len(rows), None], gen).cpu().numpy()
     return out
-
-
-_ASCII = np.frombuffer(b"ACGT", dtype=np.uint8)
-LINE = 80
-
-
-def _fasta(contigs: list, name: str) -> bytes:
-    """Records of LINE-wide lines; zero bytes pad the last line and are dropped."""
-    parts = []
-    for c, seq in enumerate(contigs):
-        parts.append(f">{name}_c{c} synthetic\n".encode())
-        rows = -(-len(seq) // LINE)
-        padded = np.zeros(rows * LINE, np.uint8)
-        padded[: len(seq)] = seq
-        text = np.empty((rows, LINE + 1), np.uint8)
-        text[:, :LINE] = padded.reshape(rows, LINE)
-        text[:, LINE] = ord("\n")
-        body = text.reshape(-1)
-        parts.append(body[body != 0].tobytes())
-    return b"".join(parts)
-
-
-def genome_corpus(root: str, spec: dict, seed: int) -> dict:
-    """Write `spec["genomes"]` prokaryote-like genomes under root as
-    g0000.fna.gz ...  Every seed gets the same set of sizes in another
-    order: lengths log-spaced over spec["lengths"], contig counts
-    log-spaced over spec["contigs"], and an `n_run_share` of the genomes
-    with `n_runs` runs of N (counts spaced over the range); the bases,
-    the contig cuts, the runs' places and lengths (`n_run_len`) are drawn
-    from the seed.  Returns {"files": [...], "bases": total symbols}."""
-    rng = np.random.default_rng(seed)
-    os.makedirs(root, exist_ok=True)
-    g_count = spec["genomes"]
-    lengths = np.exp(np.linspace(*np.log(spec["lengths"]), g_count)).astype(np.int64)
-    contigs = np.exp(np.linspace(*np.log(spec["contigs"]), g_count)).round().astype(np.int64)
-    with_runs = int(round(spec["n_run_share"] * g_count))
-    runs = np.linspace(*spec["n_runs"], with_runs).round().astype(np.int64)
-    lengths, contigs = lengths[rng.permutation(g_count)], contigs[rng.permutation(g_count)]
-    run_count = np.zeros(g_count, np.int64)
-    run_count[rng.permutation(g_count)[:with_runs]] = runs
-    jobs = []
-    for g in range(g_count):
-        length = int(lengths[g])
-        seq = _ASCII[rng.integers(0, 4, length, dtype=np.uint8)]
-        for _ in range(int(run_count[g])):
-            run = int(rng.integers(spec["n_run_len"][0], spec["n_run_len"][1] + 1))
-            at = int(rng.integers(0, length - run))
-            seq[at : at + run] = ord("N")
-        cuts = np.unique(rng.integers(1, length, int(contigs[g]) - 1))
-        jobs.append((os.path.join(root, f"g{g:04d}.fna.gz"), np.split(seq, cuts), f"g{g:04d}"))
-
-    def write(job):
-        path, contigs, name = job
-        with open(path, "wb") as f:
-            # mtime 0: the same seed writes the same bytes
-            f.write(gzip.compress(_fasta(contigs, name), compresslevel=spec["gzip_level"], mtime=0))
-        return path
-
-    with ThreadPoolExecutor(max_workers=spec.get("writers", 4)) as pool:
-        files = list(pool.map(write, jobs))
-    return {"files": files, "bases": int(lengths.sum())}

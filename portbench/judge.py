@@ -18,8 +18,10 @@ Search answers (one row of k per query):
   not compared (the tiers' candidate lists lose far neighbours by design).
 
 Sketches (one signature per genome and pass):
-- `slot_mismatch`: slots whose bits differ from the reference's;
-- `bad_passes`: passes whose database lacks a genome or holds a wrong count.
+- `slot_mismatch`: slots whose bits differ from the reference's, compared
+  as unsigned integers of the reference's slot width;
+- `bad_passes`: passes whose database lacks a genome, holds a wrong count
+  or keeps its slots in another dtype than the reference's.
 """
 
 from __future__ import annotations
@@ -73,15 +75,17 @@ def search_numbers(ref, queries: np.ndarray, d: np.ndarray, ids: np.ndarray, *, 
 
 
 def sketch_numbers(ref_sigs: np.ndarray, passes: list, expected: int) -> dict:
-    """ref_sigs [G, S] f32 of the judged genomes; passes: per pass either
-    None (no database) or (sigs [G, S] of the same genomes, nb_points)."""
+    """ref_sigs [G, S] of the judged genomes in the reference's dtype;
+    passes: per pass either None (no database) or (sigs [G, S] of the same
+    genomes, nb_points)."""
     mismatch, bad = 0, 0
-    want = ref_sigs.view(np.int32)
+    bits = np.dtype(f"u{ref_sigs.dtype.itemsize}")
+    want = ref_sigs.view(bits)
     for p in passes:
-        if p is None or p[1] != expected or p[0].shape != ref_sigs.shape:
+        if p is None or p[1] != expected or p[0].shape != ref_sigs.shape or p[0].dtype != ref_sigs.dtype:
             bad += 1
             continue
-        mismatch += int((p[0].view(np.int32) != want).sum())
+        mismatch += int((p[0].view(bits) != want).sum())
     return {"slot_mismatch": mismatch, "bad_passes": bad, "passes": len(passes)}
 
 

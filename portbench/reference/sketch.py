@@ -24,6 +24,11 @@ that the program and its JAX reference share:
 
 Everything is plain torch on int64 holding u32 values; no function of the
 program is imported.  `round_bf16` gives the control's signatures.
+
+As an ingest cell's reference (a configuration's `reference`, this one
+where it names none) the module declares the `ALGO` and the `DATA` it
+sketches, and gives `read_genome`, `sketch` (the program's f32 signature)
+and `control`.
 """
 
 from __future__ import annotations
@@ -33,6 +38,9 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+
+ALGO = "optdens"
+DATA = ("DNA",)
 
 M32 = 0xFFFFFFFF
 SEED = 0x5EED
@@ -184,3 +192,6 @@ def round_bf16(sig: np.ndarray) -> np.ndarray:
     """The control: f32 signatures carried in bfloat16, the next precision
     below the stated one."""
     return torch.from_numpy(sig).to(torch.bfloat16).to(torch.float32).numpy()
+
+
+control = round_bf16

@@ -6,9 +6,14 @@ The cell names a configuration (`configs/<config>.json`, as BENCHMARK.json
 gives its file) and a traffic mix (`traffic/<traffic>.json`); its limits
 are `limits/<cell>.json` and each metric is read by `metrics/<metric>.py`,
 or, where a metric has no file of its own, by that of its name less its
-last dotted part (`device_idle.small` by `metrics/device_idle.py`).
+last dotted part (`device_idle.small` by `metrics/device_idle.py`).  An
+ingest cell's corpus writer is `corpora/<corpus>.py` (the traffic's
+`corpus`) and its plain reference sketcher `reference/<reference>.py`
+(the configuration's `reference`).
 With --trace 0 the result carries the cell's end-to-end metrics, with
---trace 1 its per-layer metrics, read under the tracer.  Standard output
+--trace 1 its per-layer metrics, read under the tracer over the first
+TRACED_SECONDS of the window at most (reading a longer trace would take
+the run past its time limit).  Standard output
 ends with one JSON line; standard error ends with each compared number
 beside its limit.  Exits 2 without a CUDA card (or fewer than the cell
 asks for), and 3 if JAX or the JAX package was loaded.
@@ -31,6 +36,7 @@ from types import SimpleNamespace  # noqa: E402
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.join(ROOT, "portbench")
 FORBIDDEN = ("jax", "jaxlib", "flax", "gsearch_tpu")
+TRACED_SECONDS = 30.0
 
 
 def load_json(path: str) -> dict:
@@ -76,12 +82,28 @@ def reader_path(name: str) -> str:
     raise FileNotFoundError(f"no reader in {HERE}/metrics for {name!r}")
 
 
-def reader(name: str):
-    path = reader_path(name)
-    mod_spec = importlib.util.spec_from_file_location("portbench.metrics." + name.replace(".", "_"), path)
+def _load(path: str, module: str):
+    mod_spec = importlib.util.spec_from_file_location(module, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str):
+    return _load(reader_path(name), "portbench.metrics." + name.replace(".", "_")).read
+
+
+def part(folder: str, name: str):
+    """The module <HERE>/<folder>/<name>.py (a corpus writer, a plain
+    reference), found by the name a configuration or traffic mix gives:
+    this package's own module where HERE is this package, else the file
+    loaded on its own (a copy of the benchmark)."""
+    path = os.path.join(HERE, folder, name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {folder}/{name}.py in {HERE}")
+    if os.path.samefile(HERE, os.path.dirname(os.path.abspath(__file__))):
+        return importlib.import_module(f"{__package__}.{folder}.{name}")
+    return _load(path, f"portbench.{folder}.{name.replace('.', '_')}")
 
 
 def forbidden_modules() -> list:
@@ -126,7 +148,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device, *, bench
         rec = driver.window(seconds)
     else:
         with tracer:
-            rec = driver.window(seconds, tracer)
+            rec = driver.window(min(seconds, TRACED_SECONDS), tracer)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     t_check, told = time.perf_counter(), len(driver.lines)
     numbers = driver.check()

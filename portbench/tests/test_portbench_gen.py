@@ -1,15 +1,18 @@
 """The generators repeat from --seed, and another seed draws other inputs."""
 
 import gzip
+import hashlib
 import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
 from portbench import gen  # noqa: E402
+from portbench.corpora import genomes  # noqa: E402
 from pbcommon import INGEST_TRAFFIC, SEARCH_CFG  # noqa: E402
 
 torch.set_num_threads(2)
@@ -61,9 +64,9 @@ def test_query_fractions_are_the_same_set_for_every_seed():
 
 def test_genome_corpus_repeats_from_the_seed(tmp_path):
     spec = dict(INGEST_TRAFFIC, gzip_level=1, writers=2)
-    a = gen.genome_corpus(str(tmp_path / "a"), spec, BIG_SEED)
-    b = gen.genome_corpus(str(tmp_path / "b"), spec, BIG_SEED)
-    c = gen.genome_corpus(str(tmp_path / "c"), spec, BIG_SEED + 1)
+    a = genomes.write(str(tmp_path / "a"), spec, BIG_SEED)
+    b = genomes.write(str(tmp_path / "b"), spec, BIG_SEED)
+    c = genomes.write(str(tmp_path / "c"), spec, BIG_SEED + 1)
     read = lambda p: open(p, "rb").read()  # noqa: E731
     assert [read(p) for p in a["files"]] == [read(p) for p in b["files"]]
     assert [read(p) for p in a["files"]] != [read(p) for p in c["files"]]
@@ -72,6 +75,22 @@ def test_genome_corpus_repeats_from_the_seed(tmp_path):
     assert a["bases"] == c["bases"]
     assert sorted(map(_symbols, a["files"])) == sorted(map(_symbols, c["files"]))
     assert list(map(_symbols, a["files"])) != list(map(_symbols, c["files"]))
+
+
+@pytest.mark.parametrize("seed, digest", [
+    (7, "4f1d758c910f83395ec1acac7190ac521d990e6582a35db63c7246e366bb4943"),
+    (BIG_SEED, "bc6842d07358c344328dd8f2918d211395b936cab721ca49853d59cea5b23b9a"),
+])
+def test_genomes_corpus_writes_the_bytes_it_always_wrote(tmp_path, seed, digest):
+    """The sha256 of the files, in order, as the corpus writer wrote them
+    before it became `corpora/genomes.py`: the gtdb-ingest cell ingests
+    the same bytes."""
+    out = genomes.write(str(tmp_path), dict(INGEST_TRAFFIC, gzip_level=1, writers=2), seed)
+    h = hashlib.sha256()
+    for path in out["files"]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    assert out["bases"] == 300891 and h.hexdigest() == digest
 
 
 def _symbols(path):

@@ -11,7 +11,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
 
-from portbench import gen  # noqa: E402
+from portbench.corpora import genomes  # noqa: E402
 from portbench.reference import knn, sketch  # noqa: E402
 from pbcommon import INGEST_TRAFFIC, small_blocks  # noqa: E402
 
@@ -106,7 +106,7 @@ def test_sketch_matches_the_program_on_pieces_and_n_runs(tmp_path, monkeypatch, 
     from gsearch_tpu_torch.models import make_sketcher
 
     small_blocks(monkeypatch)
-    corpus = gen.genome_corpus(str(tmp_path), dict(INGEST_TRAFFIC, gzip_level=1), 99)
+    corpus = genomes.write(str(tmp_path), dict(INGEST_TRAFFIC, gzip_level=1), 99)
     sk = make_sketcher(SeqSketcherParams(kmer_size=16, sketch_size=sketch_size, algo="OPTDENS",
                                          data_t="DNA"), device=torch.device("cpu"))
     heavy = gated = 0
