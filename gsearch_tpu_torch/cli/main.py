@@ -128,10 +128,6 @@ TOOLS = {
 TRACED = ("tohnsw", "add", "request")
 
 
-def _algo_name(name: str) -> str:
-    return {"prob": "PROB3A"}.get(name.lower(), name.upper())
-
-
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] in TOOLS:  # forward a tool's arguments to its own parser
@@ -185,7 +181,7 @@ def _run(args, device) -> int:
             sketch=SeqSketcherParams(
                 kmer_size=args.kmer,
                 sketch_size=args.sketch,
-                algo=_algo_name(args.algo),
+                algo=args.algo,  # SketchAlgo.from_name: the README's names
                 data_t="AA" if args.aa else "DNA",
             ),
             block_flag=args.block,

@@ -30,11 +30,13 @@ class SketchAlgo(str, Enum):
 
     @classmethod
     def from_name(cls, name: str) -> "SketchAlgo":
+        """An algorithm by name, in any case; the README's `prob` is PROB3A."""
+        key = name.upper()
         try:
-            return cls(name.upper())
+            return cls({"PROB": "PROB3A"}.get(key, key))
         except ValueError:
             raise ValueError(
-                f"unknown sketching algorithm '{name}'; expected one of "
+                f"unknown sketching algorithm '{key}'; expected one of "
                 f"{[a.value.lower() for a in cls]}"
             )
 
