@@ -55,6 +55,7 @@ from ..ops.distance import (as_int32_rows, bucketed_knn, gather_hamming, hamming
                             hamming_frac_self, sig_bits, topk_smallest)
 from ..ops.mxu import (MxuSearcher, _next_pow2, _round_up, pack_hash4, pack_hash8, pack_hash16,
                        planned_footprint)
+from ..ops.query_stage import QueryStager
 from ..utils import get_logger, trace
 from .sigfile import load_sigs, save_sigs
 
@@ -474,6 +475,7 @@ class HnswIndex:
         # upload-once prefix left by a bulk build/add: (n, [n, sp] int32, fp)
         self._prefix_dev = None
         self._sigs_buf = None       # capacity buffer backing self._sigs
+        self._stager = QueryStager(device)  # query batches to the device
         #: what the last search and build did: route, tier, hops, stage seconds
         self.stats: dict = {}
 
@@ -1032,22 +1034,17 @@ class HnswIndex:
         if n <= 2048 or len(self._entry_ids) >= n:
             # tiny database: the entry tier is the whole database (K1)
             self.stats["search"] = {"route": "exact"}
-            return bucketed_knn(as_int32_rows(queries).to(self.device),
+            return bucketed_knn(self._stager.rows(queries),
                                 as_int32_rows(self._sigs).to(self.device), knbn)
 
         dev = self.device
-        with trace.span("search.stage"):
-            # one staging upload, pad rows all-ones bits as in the reference
-            qb = _next_pow2(nq, floor=8)
-            qbuf = np.full((qb, self.sketch_size), -1, np.int32)
-            qbuf[:nq] = sig_bits(queries)
+        # pad rows all-ones bits as in the reference
+        q_dev = self._stager.rows(queries, _next_pow2(nq, floor=8))
         tier_kind = self._rerank_tier()[0]
         need_host_rerank = self.search_prefix < self.sketch_size and tier_kind == "host"
         # packed4's hash noise can swap ranks near the k-th answer:
         # over-fetch and let the exact host re-score pick the true top-k
         fetch = min(max(32, knbn), n) if tier_kind == "packed4" else knbn
-        with trace.span("search.upload", dev):
-            q_dev = self._to_dev(qbuf)
         d, ids = self.search_device(q_dev, fetch, ef_search, rerank=not need_host_rerank)
         if not need_host_rerank and tier_kind == "full":
             with trace.span("search.download", dev):

@@ -38,6 +38,7 @@ from ..utils import trace
 from . import cuda_lib
 from .distance import _as_i32, _distance, as_int32_rows, gather_hamming, topk_smallest
 from .hash import M32, as_u32, mix32
+from .query_stage import QueryStager
 
 _EXPAND_SEED = 0x51614B17
 _RERANK_SEED = 0x243F6A88  # independent of the expansion hash
@@ -141,6 +142,7 @@ class MxuSearcher:
         self.rerank_factor = rerank_factor
         self.nb_cand_override = nb_cand
         self.estimator_only = bool(estimator_only)
+        self._stager = QueryStager(device)  # query batches to the device
         self._spad, self.m = self._resolve_mode(m, compact)
         m = self.m
         # _int_mm on CUDA wants the inner width and the column count in
@@ -259,10 +261,7 @@ class MxuSearcher:
         """queries [Q, S] (numpy, or a tensor on the device) -> numpy
         (distances [Q, k], ids [Q, k])."""
         if isinstance(queries, np.ndarray):
-            with trace.span("search.stage"):
-                queries = as_int32_rows(queries)
-            with trace.span("search.upload", self.device):
-                queries = queries.to(self.device)
+            queries = self._stager.rows(queries)
         d, ids = self.search_device(queries, knbn)
         with trace.span("search.download", self.device):
             return d.cpu().numpy(), ids.cpu().numpy()

@@ -106,3 +106,22 @@ def test_bulk_build_and_add_recall(rng):
             assert r_got >= 0.99, r_got
     assert got.nb_points == n0 + n1
     assert got._prefix_dev is not None and got._prefix_dev[0] == n0 + n1
+
+
+@pytest.mark.parametrize("tier", ["full", "packed8", "host"])
+def test_tier_search_batch_of_37_equals_a_batch_of_64_sliced(carried, monkeypatch, tier):
+    """37 queries go up with 27 pad rows (to 64); their answers equal those
+    of the same queries inside a batch of 64, which has none."""
+    _, got, _ = carried
+    if _BUDGETS[tier] is not None:
+        monkeypatch.setattr(thnsw, "_RERANK_DEVICE_BYTES", _BUDGETS[tier] * NBP1)
+    assert got._rerank_tier()[0] == tier
+    rng = np.random.default_rng(37)
+    q = got._sigs[rng.choice(got.nb_points, 64, replace=False)].copy()
+    redraw = rng.random(q.shape) < 0.2
+    q[redraw] = rng.integers(0, 1 << 30, size=int(redraw.sum()), dtype=np.uint32)
+    d64, i64 = got.search(q, knbn=10, ef_search=96)
+    d37, i37 = got.search(q[:37], knbn=10, ef_search=96)
+    assert i37.shape == (37, 10)
+    np.testing.assert_array_equal(i37, i64[:37])
+    np.testing.assert_array_equal(d37.view(np.uint32), d64[:37].view(np.uint32))

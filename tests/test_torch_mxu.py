@@ -126,3 +126,17 @@ def test_mxu_searcher_one_rerank_launch_over_the_chunks(rng, monkeypatch, tier, 
         np.testing.assert_array_equal(d.view(np.uint32), d_ref.view(np.uint32))
     else:
         np.testing.assert_allclose(d, d_ref, rtol=0, atol=2.0**-23)
+
+
+@pytest.mark.parametrize("tier", ["full", "compact"])
+def test_mxu_searcher_batch_of_37_equals_a_batch_of_64_sliced(rng, tier):
+    """A batch whose size is no power of two goes up as it is (no pad rows):
+    its answers equal those of the same queries inside a batch of 64."""
+    n, s = (4096, 256) if tier == "full" else (3000, 1024)
+    db, q = _planted(rng, n, s, nq=64, per=12)
+    searcher = tmxu.MxuSearcher(db, CPU, compact=tier == "compact")
+    d64, i64 = searcher.search(q, 10)
+    d37, i37 = searcher.search(q[:37], 10)
+    assert i37.shape == (37, 10)
+    np.testing.assert_array_equal(i37, i64[:37])
+    np.testing.assert_array_equal(d37.view(np.uint32), d64[:37].view(np.uint32))
